@@ -1,0 +1,77 @@
+"""Carry state from numpy arrays into the port's objects and back.
+
+A JAX array becomes a numpy array under ``np.asarray``; these functions take
+such arrays (or any numpy input) and build the port's tensors on ``device``
+(default ``cuda``). A GLM's only weights are its coefficient vector ``w``
+and the normalization vectors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.types import (
+    CSCTranspose, LabeledBatch, SparseFeatures, resolve_device,
+)
+
+
+def _tensor(a, dtype, dev) -> torch.Tensor:
+    # np.array copies: arrays exported from JAX are read-only
+    return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
+
+
+def w_from_numpy(w, dtype=torch.float32, device=None) -> torch.Tensor:
+    return _tensor(w, dtype, resolve_device(device))
+
+
+def w_to_numpy(w: torch.Tensor) -> np.ndarray:
+    return w.detach().cpu().numpy()
+
+
+def batch_from_numpy(indices, values, labels, offsets=None, weights=None,
+                     dim: Optional[int] = None, dtype=torch.float32,
+                     device=None) -> LabeledBatch:
+    """An ELL LabeledBatch from numpy ``indices`` [n, k] and ``values``
+    [n, k] (None: implicit ones). ``dim`` defaults to max index + 1."""
+    dev = resolve_device(device)
+    indices = np.asarray(indices)
+    if dim is None:
+        dim = int(indices.max()) + 1 if indices.size else 0
+    n = indices.shape[0]
+    feats = SparseFeatures(
+        indices=_tensor(indices, torch.int32, dev),
+        values=None if values is None else _tensor(values, dtype, dev),
+        dim=int(dim))
+    return LabeledBatch(
+        feats,
+        _tensor(labels, dtype, dev),
+        (torch.zeros(n, dtype=dtype, device=dev) if offsets is None
+         else _tensor(offsets, dtype, dev)),
+        (torch.ones(n, dtype=dtype, device=dev) if weights is None
+         else _tensor(weights, dtype, dev)),
+    )
+
+
+def csc_from_numpy(values, rows, col_starts, dtype=torch.float32,
+                   device=None) -> CSCTranspose:
+    """A CSCTranspose from the numpy form of the JAX package's view (its
+    ``values`` may be None: implicit ones)."""
+    dev = resolve_device(device)
+    return CSCTranspose(
+        values=None if values is None else _tensor(values, dtype, dev),
+        rows=_tensor(rows, torch.int32, dev),
+        col_starts=_tensor(col_starts, torch.int32, dev))
+
+
+def normalization_from_numpy(factors, shifts, intercept_index: int = -1,
+                             dtype=torch.float32,
+                             device=None) -> NormalizationContext:
+    dev = resolve_device(device)
+    return NormalizationContext(
+        factors=None if factors is None else _tensor(factors, dtype, dev),
+        shifts=None if shifts is None else _tensor(shifts, dtype, dev),
+        intercept_index=intercept_index)

@@ -1,0 +1,78 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+``nvcc`` compiles every source under ``ops/csrc/`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use into ``ops/_build/`` (not committed), named by a hash of
+the sources so an edited source is never served a stale library. Nothing
+here runs at import time; a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libphoton_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (nvcc is needed to build "
+                           "the port's kernels; set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> Path:
+    """Compile the sources into the library unless it is already built;
+    ``-Xptxas -v`` writes each kernel's registers and spills to
+    ``<library>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent build never loads a half file
+    return so
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every function's
+    argument types declared (pointers and the stream as ``c_void_p``)."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    for name in ("photon_mps_f32", "photon_mps_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    lib.photon_mps_tile.argtypes = []
+    lib.photon_mps_tile.restype = ctypes.c_int
+    return lib
