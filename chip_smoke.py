@@ -9,8 +9,9 @@ Phases, each of which raises on failure (so any failure exits non-zero):
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
 2. the kernel build from ``photon_ml_tpu_torch/ops/csrc`` (nvcc, sm_90a);
-3. the hand-written ``multiply_prefix_sum`` kernel against its plain
-   PyTorch version and a per-tile float64 reference, on the card, at the
+3. the hand-written ``multiply_prefix_sum`` kernel (float64 prefix of a
+   float32 product) against its plain PyTorch version and a per-tile
+   float64 reference, on the card, at the
    main path's nnz and at a ragged size, with and without values; its
    bit-for-bit determinism; ``csc_transpose_apply_kernel`` against a
    float64 reference on all-positive ``d``; and the kernel's, the plain
@@ -22,7 +23,21 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    ``fit_distributed(..., sparse_grad="csc_kernel")``. The kernel's launch
    count is reset just before the fit and read just after (it must be
    iterations + 1), and the final ``w`` must agree with the plain ``"csc"``
-   fit of the same data within 1e-3 relative L2.
+   fit of the same data within 1e-3 relative L2;
+6. OWL-QN on the same data (l2=1, l1=10, which leaves part of ``w`` at
+   zero), 20 iterations at tolerance 0 through ``"csc_kernel"``: the kernel
+   launches exactly iterations + 1 times (the line-search trials take the
+   value alone), and ``w`` agrees with the plain ``"csc"`` fit within 1e-3;
+7. TRON with the Jacobi preconditioner on the same data, at most 10 outer
+   iterations at tolerance 0: at least 2 * iterations + 1 launches (every
+   gradient, CG step and preconditioner pass goes through the kernel), two
+   runs bit-identical, ``w`` within 1e-3 of the plain ``"csc"`` fit;
+8. L-BFGS with ``line_search="full"`` at n=2^15, d=2^14 (20 iterations):
+   ``w`` within 1e-3 of the margin-path fit; then the phase-5 model's
+   scores: ``device_auc`` on the card (float64) within 1e-6 of the host
+   ``evaluators.auc``, and ``histogram_auc`` within 1e-3.
+
+Each fit's launch count is set to 0 just before it and read just after.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -41,10 +56,15 @@ import time
 import torch
 
 N_ROWS, DIM, K, ITERS = 1 << 21, 1 << 18, 39, 20
+N_SMALL, DIM_SMALL = 1 << 15, 1 << 14  # the CPU-shape cross-check
+L1 = 10.0  # leaves part of w at zero at this data's density
+TRON_ITERS = 10
 SEED = 0
 TOL_SCAN = 1e-5  # |err_i| <= TOL_SCAN * cumsum(|x|)_i within the tile
 TOL_APPLY = 1e-4  # relative error of X^T d on all-positive d
 TOL_FIT = 1e-3  # relative L2 difference of w between two fits
+TOL_AUC = 1e-6  # device_auc against the host float64 auc
+TOL_HIST_AUC = 1e-3  # the 4096-bin histogram AUC against the host auc
 # peak device-memory rate and float32 (non-tensor-core) rate, by card
 # (NVIDIA data sheets, SXM parts)
 PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
@@ -137,9 +157,11 @@ def time_scan(nnz: int, gen, dev, peaks):
     reps = 20
     kernel_ms = cuda_ms(lambda: multiply_prefix_sum(None, d), reps)
     plain_ms = cuda_ms(lambda: multiply_prefix_sum_plain(None, d, TILE), reps)
-    library_ms = cuda_ms(lambda: torch.cumsum(view, dim=1), reps)
-    # read d_sorted once, write local and totals once; one add per element
-    nbytes = 4 * (nnz + n_tiles * TILE + n_tiles)
+    library_ms = cuda_ms(
+        lambda: torch.cumsum(view, dim=1, dtype=torch.float64), reps)
+    # read the float32 d_sorted once, write the float64 local and totals
+    # once; one add per element
+    nbytes = 4 * nnz + 8 * (n_tiles * TILE + n_tiles)
     bw, flops = peaks
     bytes_ms, ops_ms = nbytes / bw * 1e3, nnz / flops * 1e3
     return {
@@ -210,6 +232,175 @@ def check_small_fit(gen, dev):
           f"f64 rel L2 {rel:.3e} (tol {TOL_FIT})")
 
 
+def run_counted(fn):
+    """Run the fit ``fn()`` with the kernel's launch count set to 0 just
+    before and read just after; returns (result, seconds, launches)."""
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    torch.cuda.synchronize()
+    multiply_prefix_sum.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    float(res.value)  # scalar fetch: the fit has run
+    return res, time.perf_counter() - t0, multiply_prefix_sum.launches
+
+
+def check_descent(name, res, dim, f0):
+    """Finite output of the right shape, a loss history that never rises
+    and ends below its start value ``f0``."""
+    lh = res.loss_history.cpu()[:res.iterations]
+    if not (res.iterations > 0 and torch.isfinite(lh).all()
+            and torch.isfinite(res.w).all() and res.w.shape == (dim,)):
+        raise RuntimeError(f"{name}: output not finite or of the wrong shape")
+    if not (lh[-1] < f0 and bool((lh[1:] <= lh[:-1]).all())):
+        raise RuntimeError(f"{name}: loss did not fall: {lh.tolist()}")
+
+
+def check_plain(name, res, plain):
+    rel = rel_l2(res.w, plain.w)
+    print(f"{name}: |w_kernel - w_csc| / |w_csc| = {rel:.3e} (tol "
+          f"{TOL_FIT}); the plain csc fit ran {plain.iterations} iterations")
+    if not rel <= TOL_FIT:
+        raise RuntimeError(f"{name}: kernel fit differs from the plain fit: "
+                           f"{rel:.3e}")
+
+
+def phase_owlqn(fit, f0, smi):
+    """OWL-QN at full width: one kernel launch per iteration plus one."""
+    from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+
+    cfg = OptimizerConfig(max_iters=ITERS, tolerance=0.0)
+    fit("csc_kernel", optimizer="owlqn", l1=L1,
+        config=OptimizerConfig(max_iters=1, tolerance=0.0))  # warm-up
+    res, sec, launches = run_counted(
+        lambda: fit("csc_kernel", optimizer="owlqn", l1=L1, config=cfg))
+    zeros = int((res.w == 0).sum())
+    print(f"fit owlqn csc_kernel (l1={L1}): {res.iterations} iterations, "
+          f"{launches} kernel launches, {res.host_syncs} host syncs, "
+          f"{zeros} of {DIM} coefficients zero, objective "
+          f"{float(res.value):.4f}, {sec:.4f} s on {smi}")
+    check_descent("owlqn", res, DIM, f0)
+    if launches != res.iterations + 1:
+        raise RuntimeError(f"owlqn: {launches} kernel launches, not "
+                           f"{res.iterations + 1}")
+    if not 0 < zeros < DIM:
+        raise RuntimeError(f"owlqn: {zeros} zero coefficients")
+    t0 = time.perf_counter()
+    plain = fit("csc", optimizer="owlqn", l1=L1, config=cfg)
+    float(plain.value)
+    print(f"fit owlqn csc (plain): {time.perf_counter() - t0:.4f} s")
+    check_plain("owlqn", res, plain)
+    return launches
+
+
+def phase_tron(fit, f0, smi):
+    """TRON with the Jacobi preconditioner at full width: every gradient,
+    CG step and preconditioner pass launches the kernel; bit-reproducible."""
+    from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+
+    cfg = OptimizerConfig(max_iters=TRON_ITERS, tolerance=0.0)
+    fit("csc_kernel", optimizer="tron",
+        config=OptimizerConfig(max_iters=1, tolerance=0.0))  # warm-up
+    res, sec, launches = run_counted(
+        lambda: fit("csc_kernel", optimizer="tron", config=cfg))
+    cg_steps = res.host_syncs - res.iterations  # one read per CG step
+    print(f"fit tron csc_kernel: {res.iterations} outer iterations "
+          f"(converged {res.converged}), {cg_steps} CG steps, {launches} "
+          f"kernel launches, loss {float(res.value):.4f}, {sec:.4f} s on "
+          f"{smi}")
+    check_descent("tron", res, DIM, f0)
+    if launches < 2 * res.iterations + 1:
+        raise RuntimeError(f"tron: {launches} kernel launches, fewer than "
+                           f"{2 * res.iterations + 1}")
+    again = fit("csc_kernel", optimizer="tron", config=cfg)
+    if not torch.equal(res.w, again.w):
+        raise RuntimeError("tron: two csc_kernel runs differ")
+    print("fit tron csc_kernel: two runs bit-identical")
+    t0 = time.perf_counter()
+    plain = fit("csc", optimizer="tron", config=cfg)
+    float(plain.value)
+    print(f"fit tron csc (plain): {time.perf_counter() - t0:.4f} s")
+    check_plain("tron", res, plain)
+    return launches
+
+
+def phase_full_line_search(gen, dev, smi):
+    """L-BFGS through the full line search at the CPU shape, against the
+    margin-path fit of the same data."""
+    from photon_ml_tpu_torch.ops.objective import make_objective
+    from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+    from photon_ml_tpu_torch.parallel.data_parallel import (
+        build_csc, fit_distributed,
+    )
+    from photon_ml_tpu_torch.types import SparseFeatures, make_batch
+
+    indices, labels = make_data(N_SMALL, DIM_SMALL, K, gen, dev)
+    batch = make_batch(SparseFeatures(indices, None, DIM_SMALL), labels,
+                       device=dev)
+    csc = build_csc(batch)
+    w0 = torch.zeros(DIM_SMALL, device=dev)
+
+    def fit(line_search, iters=ITERS):
+        return fit_distributed(
+            make_objective("logistic"), batch, w0, l2=1.0,
+            config=OptimizerConfig(max_iters=iters, tolerance=0.0),
+            sparse_grad="csc_kernel", line_search=line_search,
+            precomputed_csc=csc)
+
+    fit("full", iters=1)  # warm-up
+    res, sec, launches = run_counted(lambda: fit("full"))
+    margin = fit("margin")
+    rel = rel_l2(res.w, margin.w)
+    print(f"fit lbfgs line_search=full csc_kernel (n={N_SMALL}, "
+          f"d={DIM_SMALL}): {res.iterations} iterations, {launches} kernel "
+          f"launches, {res.host_syncs} host syncs, {sec:.4f} s on {smi}; "
+          f"|w_full - w_margin| / |w_margin| = {rel:.3e} (tol {TOL_FIT})")
+    check_descent("lbfgs full", res, DIM_SMALL, N_SMALL * math.log(2.0))
+    if res.iterations != ITERS or not rel <= TOL_FIT:
+        raise RuntimeError(f"full line search: {res.iterations} iterations, "
+                           f"rel {rel:.3e} to the margin fit")
+    if launches < res.iterations + 1:
+        raise RuntimeError(f"full line search: {launches} kernel launches")
+    return launches
+
+
+def phase_auc(w, batch, smi):
+    """The phase-5 model's scores on the card: exact and histogram AUC
+    against the host float64 evaluator."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.evaluation.device import (
+        device_auc, histogram_auc,
+    )
+    from photon_ml_tpu_torch.evaluation.evaluators import auc
+    from photon_ml_tpu_torch.models import Coefficients, GeneralizedLinearModel
+
+    scores = GeneralizedLinearModel(Coefficients(w)).score(batch.features)
+    labels = batch.labels
+    # the host evaluator computes in float64; so does the exact check here
+    s64, l64 = scores.double(), labels.double()
+    host = auc(s64.cpu().numpy(), l64.cpu().numpy(),
+               np.ones(scores.shape[0]))
+    results = {}
+    for name, fn in (
+            ("device_auc f64", lambda: device_auc(s64, l64)),
+            ("device_auc f32", lambda: device_auc(scores, labels)),
+            ("histogram_auc f32", lambda: histogram_auc(scores, labels))):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = float(fn())
+        results[name] = (value, (time.perf_counter() - t0) * 1e3)
+    for name, (value, ms) in results.items():
+        print(f"{name} of the phase-5 model's {scores.shape[0]} scores: "
+              f"{value:.9f}, |diff| to host auc {abs(value - host):.3e}, "
+              f"{ms:.3f} ms on {smi}")
+    if not abs(results["device_auc f64"][0] - host) <= TOL_AUC:
+        raise RuntimeError(f"device_auc differs from the host auc {host}")
+    if not abs(results["histogram_auc f32"][0] - host) <= TOL_HIST_AUC:
+        raise RuntimeError(f"histogram_auc differs from the host auc {host}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -273,9 +464,9 @@ def main() -> int:
     w0 = torch.zeros(DIM, device=dev)
     cfg = OptimizerConfig(max_iters=ITERS, tolerance=0.0)
 
-    def fit(mode, config=cfg):
+    def fit(mode, config=cfg, **kw):
         return fit_distributed(obj, batch, w0, l2=1.0, config=config,
-                               sparse_grad=mode, precomputed_csc=csc)
+                               sparse_grad=mode, precomputed_csc=csc, **kw)
 
     fit("csc_kernel", OptimizerConfig(max_iters=2, tolerance=0.0))  # warm-up
     torch.cuda.synchronize()
@@ -311,6 +502,15 @@ def main() -> int:
     if not rel <= TOL_FIT:
         raise RuntimeError(f"kernel fit differs from the plain fit: {rel:.3e}")
 
+    launches_by_path = {
+        "lbfgs_margin": launches,
+        "owlqn": phase_owlqn(fit, f0, smi),
+        "tron": phase_tron(fit, f0, smi),
+        f"lbfgs_full_n{N_SMALL}_d{DIM_SMALL}": phase_full_line_search(
+            gen, dev, smi),
+    }
+    phase_auc(res.w, batch, smi)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "multiply_prefix_sum",
@@ -318,6 +518,7 @@ def main() -> int:
         "source": "photon_ml_tpu_torch/ops/csrc/multiply_prefix_sum.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:34",
         "launches": launches,
+        "launches_by_path": launches_by_path,
         "max_abs_err": max_err,
         "max_err": max_err,
         "tol": f"{TOL_SCAN} * cumsum(|x|) per tile",

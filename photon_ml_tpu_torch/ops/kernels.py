@@ -4,7 +4,9 @@
 ``multiply_prefix_sum`` replaces the Pallas kernel ``_mps_kernel``: the fused
 product ``values * d_sorted`` and its TILE-LOCAL inclusive prefix sum plus
 per-tile totals, exactly the pair ``types.blocked_boundary_combine``
-consumes. On a CUDA tensor it launches the CUDA kernel
+consumes. The product is formed in the input dtype; the prefix and totals
+are float64 whatever the input dtype, so each column sum rounds once, after
+the boundary difference (see the kernel's header note). On a CUDA tensor it launches the CUDA kernel
 (``csrc/multiply_prefix_sum.cu``) or raises; on a CPU tensor it takes the
 plain PyTorch version below, which the tests and ``chip_smoke.py`` hold the
 kernel against.
@@ -24,11 +26,12 @@ _FLOATS = (torch.float32, torch.float64)
 
 def multiply_prefix_sum_plain(values: Optional[torch.Tensor],
                               d_sorted: torch.Tensor, tile: int = TILE):
-    """Plain version: a per-tile ``torch.cumsum`` of the zero-padded
-    product. Returns ``(local [n_tiles * tile], totals [n_tiles], tile)``."""
+    """Plain version: a per-tile float64 ``torch.cumsum`` of the zero-padded
+    product. Returns ``(local [n_tiles * tile], totals [n_tiles], tile)``,
+    both float64."""
     nnz = d_sorted.shape[0]
     n_tiles = max(-(-nnz // tile), 1)
-    x = d_sorted if values is None else values * d_sorted
+    x = (d_sorted if values is None else values * d_sorted).to(torch.float64)
     padded = torch.zeros(n_tiles * tile, dtype=x.dtype, device=x.device)
     padded[:nnz] = x
     local = torch.cumsum(padded.view(n_tiles, tile), dim=1)
@@ -66,9 +69,9 @@ def _launch(values, d_sorted, tile):
             raise ValueError(f"{name} must be 16-byte aligned")
     nnz = d_sorted.shape[0]
     n_tiles = max(-(-nnz // tile), 1)
-    local = torch.empty(n_tiles * tile, dtype=d_sorted.dtype,
+    local = torch.empty(n_tiles * tile, dtype=torch.float64,
                         device=d_sorted.device)
-    totals = torch.empty(n_tiles, dtype=d_sorted.dtype, device=d_sorted.device)
+    totals = torch.empty(n_tiles, dtype=torch.float64, device=d_sorted.device)
     fn = (lib.photon_mps_f32 if d_sorted.dtype == torch.float32
           else lib.photon_mps_f64)
     with torch.cuda.device(d_sorted.device):
@@ -86,11 +89,12 @@ def _launch(values, d_sorted, tile):
 def multiply_prefix_sum(values: Optional[torch.Tensor],
                         d_sorted: torch.Tensor, tile: int = TILE):
     """TILE-LOCAL inclusive prefix sums of ``values * d_sorted`` (both
-    [nnz]; ``values=None`` is implicit ones), plus per-tile totals.
+    [nnz], float32 or float64; ``values=None`` is implicit ones), plus
+    per-tile totals.
 
-    Returns ``(local, totals, tile)``: ``local`` is [n_tiles * tile] with the
-    prefix restarting every ``tile`` elements; beyond nnz each element of the
-    last tile holds that tile's total. CUDA tensors go to the kernel (tile
+    Returns ``(local, totals, tile)``: ``local`` is float64 [n_tiles * tile]
+    with the prefix restarting every ``tile`` elements; beyond nnz each
+    element of the last tile holds that tile's total. CUDA tensors go to the kernel (tile
     32768 only), CPU tensors to the plain version; anything else raises.
     ``multiply_prefix_sum.launches`` counts kernel launches."""
     _check(values, d_sorted, tile)
@@ -109,8 +113,9 @@ def csc_transpose_apply_kernel(csc: CSCTranspose,
     """``X^T d`` from the column-sorted view through
     :func:`multiply_prefix_sum` and the shared blocked boundary combine
     (counterpart of ``csc_transpose_apply_pallas``; same accuracy
-    guarantee: the error does not grow with nnz). Implicit ones pass
-    ``values=None``, so the kernel reads no ones vector."""
+    guarantee: the error does not grow with nnz; the combine runs in float64
+    and rounds each column sum once). Implicit ones pass ``values=None``, so
+    the kernel reads no ones vector."""
     local, totals, tile = multiply_prefix_sum(csc.values, d[csc.rows])
     return blocked_boundary_combine(local, totals, csc.col_starts,
                                     tile).to(d.dtype)

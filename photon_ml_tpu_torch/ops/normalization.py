@@ -65,6 +65,24 @@ class NormalizationContext:
             w_eff[self.intercept_index] += adjust
         return w_eff
 
+    def to_training_space(self, w_model: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`to_model_space` (for warm starts)."""
+        w = w_model
+        if self.shifts is not None and self.intercept_index >= 0:
+            # undo the intercept fold: adjust was -sum(s * w_eff_nonint)
+            s = self.shifts.clone()
+            s[self.intercept_index] = 0.0
+            w_no_int = w.clone()
+            w_no_int[self.intercept_index] = 0.0
+            w = w.clone()
+            w[self.intercept_index] += torch.sum(s * w_no_int)
+        if self.factors is not None:
+            f = self.factors.clone()
+            if self.intercept_index >= 0:
+                f[self.intercept_index] = 1.0
+            w = w / f
+        return w
+
 
 # The three helpers below are the JAX package's ``_eff_coeffs``,
 # ``_norm_fixed_fs`` and ``_norm_chain_t`` (parallel/data_parallel.py); they

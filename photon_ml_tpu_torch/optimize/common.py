@@ -9,7 +9,8 @@ and each loop counts those reads (``OptimizationResult.host_syncs``).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -23,6 +24,83 @@ class OptimizerConfig:
     tolerance: float = 1e-7
     history: int = 10
     max_line_search_steps: int = 25
+
+
+@dataclasses.dataclass(frozen=True)
+class ToleranceSchedule:
+    """Inexact-outer-loop solver tolerance schedule: ``at(step, final_tol)``
+    starts at ``start`` and tightens geometrically by ``decay`` per outer
+    step, clamped from below at the caller's final tolerance (early
+    block-coordinate sweeps need no exact inner solves)."""
+
+    start: float = 1e-3
+    decay: float = 0.1
+
+    def __post_init__(self):
+        if not (math.isfinite(self.start) and self.start > 0):
+            raise ValueError(f"schedule start must be finite and > 0, "
+                             f"got {self.start}")
+        if not (0 < self.decay < 1):
+            raise ValueError(f"schedule decay must be in (0, 1), "
+                             f"got {self.decay}")
+
+    def at(self, step: int, final_tol: float) -> float:
+        if final_tol <= 0:
+            # an explicit tol <= 0 disables convergence tests entirely
+            # (pinned iteration counts); a schedule must not re-enable them
+            return final_tol
+        return max(float(final_tol), self.start * self.decay ** max(step, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class PathConfig:
+    """Pathwise fixed-effect solver settings, beside
+    :class:`OptimizerConfig`. ``screen``: ``"strong"``, ``"safe"`` or
+    ``"off"``; ``kkt_tol``: relative slack on the L1 weight in the
+    violation test ``|g_j| > l1 + kkt_tol * max(l1, 1)``;
+    ``max_kkt_rounds``: screen -> solve -> check rounds before a
+    full-feature solve; ``min_bucket``: floor of the power-of-two restricted
+    width; ``screen_slack``: over-screening on purpose (0 = the published
+    rules); ``keep_states``: keep one (lambda, w, gradient) snapshot per
+    solved lambda for warm starts."""
+
+    screen: str = "strong"
+    kkt_tol: float = 1e-6
+    max_kkt_rounds: int = 5
+    min_bucket: int = 64
+    screen_slack: float = 0.0
+    keep_states: bool = True
+
+    def __post_init__(self):
+        if self.screen not in ("strong", "safe", "off"):
+            raise ValueError(f"screen must be strong|safe|off, "
+                             f"got {self.screen!r}")
+        if not (self.kkt_tol >= 0):
+            raise ValueError(f"kkt_tol must be >= 0, got {self.kkt_tol}")
+        if self.max_kkt_rounds < 1:
+            raise ValueError(f"max_kkt_rounds must be >= 1, "
+                             f"got {self.max_kkt_rounds}")
+        if self.min_bucket < 1:
+            raise ValueError(f"min_bucket must be >= 1, "
+                             f"got {self.min_bucket}")
+
+
+def parse_tolerance_schedule(spec: str) -> Optional[ToleranceSchedule]:
+    """Parse a ``START:DECAY`` spec (e.g. ``1e-3:0.1``) into a
+    :class:`ToleranceSchedule`; ``off``/``none`` disable it."""
+    s = spec.strip().lower()
+    if s in ("off", "none", ""):
+        return None
+    parts = s.split(":")
+    if len(parts) != 2:
+        raise ValueError(
+            f"expected START:DECAY (e.g. 1e-3:0.1) or 'off', got {spec!r}")
+    try:
+        start, decay = float(parts[0]), float(parts[1])
+    except ValueError:
+        raise ValueError(
+            f"expected numeric START:DECAY, got {spec!r}") from None
+    return ToleranceSchedule(start, decay)
 
 
 class OptimizationResult(NamedTuple):

@@ -1,17 +1,20 @@
-"""Strong-Wolfe line search (counterpart of
-``photon_ml_tpu/optimize/linesearch.py::strong_wolfe``).
+"""Line searches (counterpart of ``photon_ml_tpu/optimize/linesearch.py``).
 
-Bracketing + zoom (Nocedal & Wright alg. 3.5/3.6) with safeguarded
-quadratic interpolation and bisection fallback. The JAX version is one
-``lax.while_loop`` over a phase state machine; here it is a Python loop
-whose numeric state stays on the device as 0-d tensors, updated with the
-same ``where`` arithmetic. The host reads one small tensor per trial (the
-phase flags), which decides whether to stop and which step runs next.
+:func:`strong_wolfe`: bracketing + zoom (Nocedal & Wright alg. 3.5/3.6)
+with safeguarded quadratic interpolation and bisection fallback. The JAX
+version is one ``lax.while_loop`` over a phase state machine; here it is a
+Python loop whose numeric state stays on the device as 0-d tensors, updated
+with the same ``where`` arithmetic. The host reads one small tensor per
+trial (the phase flags), which decides whether to stop and which step runs
+next.
+
+:func:`backtracking`: Armijo backtracking with an optional orthant
+projection (OWL-QN); the host reads the Armijo flag once per trial.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -137,3 +140,46 @@ def strong_wolfe(
     g = torch.where(bad_direction, g0, g)
     return LineSearchResult(alpha, f, g, i, (done | took_step) & ~bad_direction,
                             syncs)
+
+
+class BacktrackingResult(NamedTuple):
+    w: torch.Tensor  # the accepted point (w itself on failure)
+    f: torch.Tensor  # its value (f0 on failure)
+    n_evals: int  # trials made; the host read the Armijo flag after each
+    ok: bool
+
+
+def backtracking(
+    fun: Callable,
+    w: torch.Tensor,
+    p: torch.Tensor,
+    f0: torch.Tensor,
+    pseudo_grad: torch.Tensor,
+    alpha0=1.0,
+    c1: float = 1e-4,
+    shrink: float = 0.5,
+    max_evals: int = 30,
+    project: Optional[Callable] = None,
+) -> BacktrackingResult:
+    """Armijo backtracking with optional orthant projection (OWL-QN style).
+
+    ``fun(w) -> f``. ``project(w_trial)`` maps the trial point back to the
+    feasible orthant before evaluation (identity if None). The sufficient
+    decrease test is the OWL-QN form
+    ``f_new <= f0 + c1 * pseudo_grad . (w_new - w)``, plain Armijo when
+    ``project`` is None and ``pseudo_grad`` is the gradient."""
+    alpha = torch.as_tensor(alpha0, dtype=f0.dtype, device=f0.device)
+    w_new, f_new, ok, i = w, f0, False, 0
+    while i < max_evals:
+        w_new = w + alpha * p
+        if project is not None:
+            w_new = project(w_new)
+        f_new = fun(w_new)
+        i += 1
+        ok = bool(f_new <= f0 + c1 * torch.sum(pseudo_grad * (w_new - w)))
+        if ok:
+            break
+        alpha = alpha * shrink
+    if not ok:
+        w_new, f_new = w, f0
+    return BacktrackingResult(w_new, f_new, i, ok)

@@ -1,43 +1,96 @@
 """The fixed-effect GLM fit on one device (counterpart of
-``photon_ml_tpu/parallel/data_parallel.py``'s margin path).
+``photon_ml_tpu/parallel/data_parallel.py``).
 
 The JAX package shards the batch over a mesh and joins per-shard partial
 sums with ``psum``; on one device those reductions are plain sums, so there
-is no mesh here. The margin-space primitives feed
-:func:`~photon_ml_tpu_torch.optimize.lbfgs_margin.lbfgs_margin` with
-explicit margin-space derivatives (the loss's closed-form ``d1``): forward
-is the ELL gather, backward is ``X^T d`` in one of three modes:
+is no mesh here and the ``distributed_*`` functions are plain closures over
+the objective. A fit takes one of three paths:
+
+* the margin path (``optimizer="lbfgs"``, ``line_search="margin"``):
+  :func:`~photon_ml_tpu_torch.optimize.lbfgs_margin.lbfgs_margin` on cached
+  margin vectors, two data passes per iteration;
+* the CSC path (any other optimizer or line search, ``sparse_grad`` a
+  column-sorted mode): the optimizer runs against the closures of
+  :func:`make_csc_path`;
+* the full path (``"scatter"`` or dense features): the optimizer runs
+  against the objective itself.
+
+``X^T d`` is computed in one of five modes:
 
 * ``"scatter"``: ``index_add_`` over the ELL layout (on CUDA it sums in
   atomic order, so two runs may differ in the last bits);
 * ``"csc"``: the plain blocked column-sorted path
   (``types.csc_transpose_apply``);
 * ``"csc_kernel"``: the column-sorted path through the hand-written kernel
-  (``ops.kernels.csc_transpose_apply_kernel``).
+  (``ops.kernels.csc_transpose_apply_kernel``);
+* ``"csc_precise"``: the column-sorted path with one float64 global prefix;
+* ``"csc_segment"``: the column-sorted path as a sorted segment sum
+  (``types.csc_segment_apply``).
+
+The column-sorted modes use no atomics, so their fits are bit-reproducible
+from run to run; TRON's Jacobi preconditioner goes through the same view.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Callable, Optional
 
 import torch
 
 from photon_ml_tpu_torch.ops.kernels import csc_transpose_apply_kernel
 from photon_ml_tpu_torch.ops.losses import apply_weights, mask_margins
-from photon_ml_tpu_torch.ops.normalization import eff_coeffs, norm_chain_t
+from photon_ml_tpu_torch.ops.normalization import (
+    eff_coeffs, norm_chain_t, norm_fixed_fs,
+)
 from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.optimize import get_optimizer
 from photon_ml_tpu_torch.optimize.common import (
     OptimizationResult, OptimizerConfig,
 )
 from photon_ml_tpu_torch.optimize.lbfgs_margin import lbfgs_margin
 from photon_ml_tpu_torch.types import (
     CSCTranspose, LabeledBatch, SparseFeatures, build_csc_transpose,
-    csc_transpose_apply, margins as ell_margins, transpose_apply,
+    csc_segment_apply, csc_transpose_apply, margins as ell_margins,
+    transpose_apply,
 )
 
-SPARSE_GRAD_MODES = ("scatter", "csc", "csc_kernel")
-_CSC_APPLY = {"csc": csc_transpose_apply,
-              "csc_kernel": csc_transpose_apply_kernel}
+SPARSE_GRAD_MODES = ("scatter", "csc", "csc_kernel", "csc_precise",
+                     "csc_segment")
+_CSC_APPLY = {
+    "csc": csc_transpose_apply,
+    "csc_kernel": csc_transpose_apply_kernel,
+    "csc_precise": functools.partial(csc_transpose_apply, precise=True),
+    "csc_segment": csc_segment_apply,
+}
+LINE_SEARCHES = ("margin", "full")
+
+
+def distributed_value_and_grad(objective: GLMObjective) -> Callable:
+    """``fg(w, batch, l2) -> (value, grad)`` on the batch's device."""
+    def fg(w, batch, l2=0.0):
+        return objective.value_and_grad(w, batch, l2)
+
+    return fg
+
+
+def distributed_hvp(objective: GLMObjective) -> Callable:
+    """``hvp(w, v, batch, l2)``: one Hessian-vector product, a full pass
+    over the data (the closed form of ``GLMObjective.hvp``)."""
+    def hvp(w, v, batch, l2=0.0):
+        return objective.hvp(w, v, batch, l2)
+
+    return hvp
+
+
+def distributed_diagonal_hessian(objective: GLMObjective) -> Callable:
+    """``diag(w, batch, l2)``: the exact Hessian diagonal, one data pass;
+    feeds TRON's Jacobi preconditioner on the full path."""
+    def diag(w, batch, l2=0.0):
+        return objective.diagonal_hessian(w, batch, l2)
+
+    return diag
 
 
 def resolve_sparse_grad(sparse_grad: str, features=None) -> str:
@@ -56,13 +109,98 @@ def resolve_sparse_grad(sparse_grad: str, features=None) -> str:
     return sparse_grad
 
 
-def build_csc(batch: LabeledBatch) -> CSCTranspose:
+def make_csc_path(objective: GLMObjective, use_kernel: bool = False,
+                  precise: bool = False, segment: bool = False,
+                  with_cols: Optional[bool] = None):
+    """Scatter-free sparse gradient path (see ``types.CSCTranspose``).
+
+    Returns ``(build, fg, hvp)``: ``build(batch)`` sorts the nonzeros by
+    column (once per fit, or once per dataset through
+    :func:`build_csc`); ``fg(w, batch, csc, l2)`` and
+    ``hvp(w, v, batch, csc, l2)`` evaluate the objective with explicit
+    margin-space derivatives: forward is the ELL gather, backward is ``X^T
+    d`` through the column-sorted view, and normalization maps through
+    ``eff_coeffs`` / ``norm_chain_t``. Requires SparseFeatures."""
+    if with_cols is None:
+        with_cols = segment
+    if use_kernel:
+        if precise:
+            raise ValueError("precise (one global f64 prefix) accumulation "
+                             "is not available in the kernel; use "
+                             "sparse_grad='csc_precise'")
+        apply_t = _CSC_APPLY["csc_kernel"]
+    elif segment:
+        apply_t = _CSC_APPLY["csc_segment"]
+    elif precise:
+        apply_t = _CSC_APPLY["csc_precise"]
+    else:
+        apply_t = _CSC_APPLY["csc"]
+    norm = objective.normalization
+
+    def build(batch: LabeledBatch) -> CSCTranspose:
+        return build_csc(batch, with_cols=with_cols)
+
+    def fg(w, batch, csc, l2=0.0):
+        m = mask_margins(batch.weights, objective.margins(w, batch))
+        f = torch.sum(apply_weights(batch.weights,
+                                    objective.loss.loss(m, batch.labels)))
+        d1 = apply_weights(batch.weights, objective.loss.d1(m, batch.labels))
+        g = norm_chain_t(norm, apply_t(csc, d1), torch.sum(d1))
+        wr = objective.reg_mask(w)
+        return f + 0.5 * l2 * torch.sum(wr * wr), g + l2 * wr
+
+    def hvp(w, v, batch, csc, l2=0.0):
+        # the margin is linear in w, so v maps through the same
+        # effective-coefficient map (no offset term)
+        v_eff, v_adjust = eff_coeffs(norm, v)
+        dv = (objective.curvature(w, batch)
+              * (ell_margins(batch.features, v_eff) + v_adjust))
+        hv = norm_chain_t(norm, apply_t(csc, dv), torch.sum(dv))
+        return hv + l2 * objective.reg_mask(v)
+
+    return build, fg, hvp
+
+
+def make_csc_diagonal_hessian(objective: GLMObjective,
+                              sparse_grad: str = "csc"):
+    """TRON's Jacobi preconditioner through the column-sorted view, so a
+    CSC fit stays free of atomics (``GLMObjective.diagonal_hessian``
+    scatters). Returns ``(squares, diag)``: ``squares(csc)`` is the view of
+    squared values (the view itself for implicit ones, since 1^2 == 1),
+    built once per fit; ``diag(w, batch, csc, csc_sq, l2)`` is the exact
+    Hessian diagonal, with the normalization expansion of
+    ``GLMObjective.diagonal_hessian``."""
+    apply_t = _CSC_APPLY[sparse_grad]
+
+    def squares(csc: CSCTranspose) -> CSCTranspose:
+        if csc.values is None:
+            return csc
+        return dataclasses.replace(csc, values=csc.values * csc.values)
+
+    def diag(w, batch, csc, csc_sq, l2=0.0):
+        d2 = objective.curvature(w, batch)
+        out = apply_t(csc_sq, d2)
+        f, s = norm_fixed_fs(objective.normalization, out.dtype)
+        if s is not None:
+            xd2 = out if csc_sq is csc else apply_t(csc, d2)
+            out = out - 2.0 * s * xd2 + s * s * torch.sum(d2)
+        if f is not None:
+            out = out * f * f
+        return out + objective.reg_diagonal(out, l2)
+
+    return squares, diag
+
+
+def build_csc(batch: LabeledBatch, with_cols: bool = True) -> CSCTranspose:
     """The column-sorted (CSC) view of a batch, built once per dataset for
-    reuse across fits (``fit_distributed(..., precomputed_csc=...)``)."""
+    reuse across fits (``fit_distributed(..., precomputed_csc=...)``).
+    ``with_cols`` keeps the sorted column ids that ``"csc_segment"``
+    reads, so one view serves every mode."""
     feats = batch.features
     if not isinstance(feats, SparseFeatures):
         raise ValueError("CSC path needs SparseFeatures")
-    return build_csc_transpose(feats.indices, feats.values, feats.dim)
+    return build_csc_transpose(feats.indices, feats.values, feats.dim,
+                               with_cols=with_cols)
 
 
 def make_margin_path(objective: GLMObjective, transpose: str = "scatter"):
@@ -160,12 +298,12 @@ def _fit_distributed_margin(objective, batch, w0, l2, config,
     if precomputed_csc is not None and not use_csc:
         raise ValueError(
             f"precomputed_csc given but sparse_grad={transpose!r} does not "
-            "use it; pass sparse_grad='csc' or 'csc_kernel'")
+            "use it; pass sparse_grad='csc' (or a csc variant)")
     (init_margin, dir_margin, loss_and_dir, make_data_grad,
      delta_and_dir) = make_margin_path(objective, transpose)
     csc = precomputed_csc
     if use_csc and csc is None:
-        csc = build_csc(batch)
+        csc = build_csc(batch, with_cols=transpose == "csc_segment")
     return lbfgs_margin(
         dir_margin(batch), loss_and_dir(batch), make_data_grad(batch, csc),
         objective.reg_mask, w0, init_margin(w0, batch), l2, config,
@@ -173,11 +311,80 @@ def _fit_distributed_margin(objective, batch, w0, l2, config,
     )
 
 
+def _l1_mask(objective: GLMObjective, w0: torch.Tensor):
+    """OWL-QN's L1 mask: None, or ones with the unpenalized intercept 0
+    (consistent with the L2 mask)."""
+    if objective.intercept_index < 0 or objective.regularize_intercept:
+        return None
+    mask = torch.ones_like(w0)
+    mask[objective.intercept_index] = 0.0
+    return mask
+
+
+def _run_optimizer(optimizer, objective, w0, l1, config, fun_and_grad,
+                   value, hvp, precond) -> OptimizationResult:
+    """Run ``optimizer`` on the closures of one fit path. OWL-QN's
+    line-search trials take the value-only ``value``, so each trial is one
+    forward pass."""
+    opt = get_optimizer(optimizer)
+    if optimizer == "owlqn":
+        return opt(fun_and_grad, w0, l1, config,
+                   l1_mask=_l1_mask(objective, w0), fun=value)
+    if optimizer == "tron":
+        return opt(fun_and_grad, w0, config, hvp=hvp, precond=precond)
+    return opt(fun_and_grad, w0, config)
+
+
+def _fit_distributed_csc(objective, batch, w0, l2, l1, optimizer, config,
+                         transpose: str = "csc",
+                         precomputed_csc=None) -> OptimizationResult:
+    """CSC-path fit: sort the nonzeros by column once (or reuse
+    ``precomputed_csc`` from :func:`build_csc`), then run the optimizer
+    against the sorted view. Every gradient, Hessian-vector product and
+    preconditioner pass goes through ``transpose``'s apply."""
+    build, fg, hvp = make_csc_path(
+        objective, use_kernel=transpose == "csc_kernel",
+        precise=transpose == "csc_precise",
+        segment=transpose == "csc_segment")
+    csc = build(batch) if precomputed_csc is None else precomputed_csc
+    precond = None
+    if optimizer == "tron":
+        squares, diag = make_csc_diagonal_hessian(objective, transpose)
+        csc_sq = squares(csc)
+
+        def precond(w):
+            return diag(w, batch, csc, csc_sq, l2)
+
+    return _run_optimizer(
+        optimizer, objective, w0, l1, config,
+        fun_and_grad=lambda w: fg(w, batch, csc, l2),
+        value=lambda w: objective.value(w, batch, l2),
+        hvp=lambda w, v: hvp(w, v, batch, csc, l2),
+        precond=precond)
+
+
+def _fit_distributed_full(objective, batch, w0, l2, l1, optimizer,
+                          config) -> OptimizationResult:
+    """Full-path fit: the optimizer evaluates the objective itself at every
+    trial (``X^T d`` by ``index_add_`` for sparse features, a matmul for
+    dense ones)."""
+    fg = distributed_value_and_grad(objective)
+    hvp = distributed_hvp(objective)
+    diag = distributed_diagonal_hessian(objective)
+    return _run_optimizer(
+        optimizer, objective, w0, l1, config,
+        fun_and_grad=lambda w: fg(w, batch, l2),
+        value=lambda w: objective.value(w, batch, l2),
+        hvp=lambda w, v: hvp(w, v, batch, l2),
+        precond=lambda w: diag(w, batch, l2))
+
+
 def fit_distributed(
     objective: GLMObjective,
     batch: LabeledBatch,
     w0: torch.Tensor,
     l2=0.0,
+    l1=0.0,
     optimizer: str = "lbfgs",
     config: OptimizerConfig = OptimizerConfig(),
     sparse_grad: str = "auto",
@@ -186,20 +393,40 @@ def fit_distributed(
 ) -> OptimizationResult:
     """Run a full fit on the device the batch lies on.
 
+    ``optimizer``: "lbfgs", "owlqn" (minimizes the objective plus
+    ``l1 * ||w||_1``, the intercept unpenalized unless the objective
+    regularizes it) or "tron" (Jacobi-preconditioned). ``l1`` is read by
+    OWL-QN only.
+
     ``sparse_grad``: "auto" (see :func:`resolve_sparse_grad`), "scatter",
-    "csc" or "csc_kernel". Only ``optimizer="lbfgs"`` with
-    ``line_search="margin"`` is ported so far.
+    "csc", "csc_kernel", "csc_precise" or "csc_segment".
+
+    ``line_search``: "margin" (L-BFGS only) runs the strong-Wolfe search on
+    cached margin vectors, two data passes per iteration; "full" evaluates
+    the objective at every trial. OWL-QN and TRON take the full path
+    whatever ``line_search`` says.
 
     ``precomputed_csc``: reuse a :func:`build_csc` result across fits on
     the same dataset so the per-dataset column sort is paid once."""
-    if optimizer != "lbfgs" or line_search != "margin":
-        raise NotImplementedError(
-            f"optimizer={optimizer!r}, line_search={line_search!r} is not "
-            "ported yet; only lbfgs with the margin line search is")
+    if line_search not in LINE_SEARCHES:
+        raise ValueError(f"unknown line_search {line_search!r}; known: "
+                         f"{LINE_SEARCHES}")
+    get_optimizer(optimizer)  # unknown names raise before any data pass
     if w0.device != batch.device:
         raise ValueError(f"w0 lies on {w0.device}, the batch on "
                          f"{batch.device}")
     sparse_grad = resolve_sparse_grad(sparse_grad, batch.features)
-    return _fit_distributed_margin(
-        objective, batch, w0, l2, config, transpose=sparse_grad,
-        precomputed_csc=precomputed_csc)
+    if optimizer == "lbfgs" and line_search == "margin":
+        return _fit_distributed_margin(
+            objective, batch, w0, l2, config, transpose=sparse_grad,
+            precomputed_csc=precomputed_csc)
+    if sparse_grad in _CSC_APPLY:
+        return _fit_distributed_csc(
+            objective, batch, w0, l2, l1, optimizer, config,
+            transpose=sparse_grad, precomputed_csc=precomputed_csc)
+    if precomputed_csc is not None:
+        raise ValueError(
+            f"precomputed_csc given but sparse_grad={sparse_grad!r} does "
+            "not use it; pass sparse_grad='csc' (or a csc variant)")
+    return _fit_distributed_full(objective, batch, w0, l2, l1, optimizer,
+                                 config)

@@ -2,13 +2,16 @@
 """Where the device time of the port's main path goes, on the card.
 
 Fits the same Criteo-shaped problem as ``chip_smoke.py`` (n=2^21, d=2^18,
-k=39 implicit ones, float32, 20 L-BFGS iterations at tolerance 0, through
+k=39 implicit ones, float32, at tolerance 0, through
 ``sparse_grad="csc_kernel"``) once without and once under
 ``torch.profiler``, then prints the wall-clock of both fits, the device
 time by kernel (largest first), and the device's idle share of the
-profiled fit. Run from the repository root on a machine with one GPU:
+profiled fit. The optimizer is the main path's L-BFGS with the margin line
+search (20 iterations) unless one of ``owlqn`` (20 iterations, l1 as in
+``chip_smoke.py``) or ``tron`` (at most 10 outer iterations) is named. Run
+from the repository root on a machine with one GPU:
 
-    python3 scripts/torch_fit_profile.py
+    python3 scripts/torch_fit_profile.py [lbfgs|owlqn|tron]
 
 The last line is a JSON object with the same numbers.
 """
@@ -32,7 +35,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_fit_profile: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import DIM, ITERS, K, N_ROWS, SEED, make_data
+    from chip_smoke import (
+        DIM, ITERS, K, L1, N_ROWS, SEED, TRON_ITERS, make_data,
+    )
     from photon_ml_tpu_torch.ops.objective import make_objective
     from photon_ml_tpu_torch.optimize.common import OptimizerConfig
     from photon_ml_tpu_torch.parallel.data_parallel import (
@@ -54,10 +59,14 @@ def main() -> int:
     obj = make_objective("logistic")
     w0 = torch.zeros(DIM, device=dev)
 
-    def fit(iters=ITERS):
+    optimizer = sys.argv[1] if len(sys.argv) > 1 else "lbfgs"
+    iters = TRON_ITERS if optimizer == "tron" else ITERS
+
+    def fit(max_iters=iters):
         res = fit_distributed(
-            obj, batch, w0, l2=1.0, sparse_grad="csc_kernel",
-            config=OptimizerConfig(max_iters=iters, tolerance=0.0),
+            obj, batch, w0, l2=1.0, l1=L1, optimizer=optimizer,
+            sparse_grad="csc_kernel",
+            config=OptimizerConfig(max_iters=max_iters, tolerance=0.0),
             precomputed_csc=csc)
         float(res.value)  # scalar fetch: the fit has run
         return res
@@ -65,7 +74,7 @@ def main() -> int:
     fit(2)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fit()
+    res = fit()
     plain_s = time.perf_counter() - t0
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -83,7 +92,8 @@ def main() -> int:
              "share": e.self_device_time_total / 1e3 / busy_ms}
             for e in kernels] if busy_ms > 0 else []
     print(f"card: {smi}")
-    print(f"fit ({ITERS} iterations): {plain_s * 1e3:.3f} ms unprofiled, "
+    print(f"fit {optimizer} ({res.iterations} iterations): "
+          f"{plain_s * 1e3:.3f} ms unprofiled, "
           f"{profiled_s * 1e3:.3f} ms profiled")
     if not rows:
         print("profiler recorded no device time: breakdown not measured")
@@ -93,7 +103,8 @@ def main() -> int:
     idle = 1.0 - busy_ms / (profiled_s * 1e3) if rows else None
     print(f"device busy {busy_ms:.3f} ms; idle share of the profiled fit: "
           f"{'not measured' if idle is None else f'{idle:.4f}'}")
-    print(json.dumps({"card": smi, "fit_ms": plain_s * 1e3,
+    print(json.dumps({"card": smi, "optimizer": optimizer,
+                      "iterations": res.iterations, "fit_ms": plain_s * 1e3,
                       "profiled_fit_ms": profiled_s * 1e3,
                       "device_busy_ms": busy_ms, "idle_share": idle,
                       "kernels": rows[:15]}))

@@ -1,16 +1,25 @@
-"""The hand-written CUDA kernel on the card, against its plain version.
+"""The hand-written CUDA kernel on the card, against its plain version,
+and the fits and metrics that run through it against the same on the CPU.
 
 Skipped without a CUDA device. This file imports neither JAX nor the JAX
 package, so on a GPU machine without JAX it runs with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
 
+import numpy as np
 import pytest
 import torch
+
+from photon_ml_tpu_torch.evaluation.device import device_auc
+from photon_ml_tpu_torch.evaluation.evaluators import auc
+from photon_ml_tpu_torch.interop import batch_from_numpy
 
 from photon_ml_tpu_torch.ops.kernels import (
     TILE, csc_transpose_apply_kernel, multiply_prefix_sum,
     multiply_prefix_sum_plain,
 )
+from photon_ml_tpu_torch.ops.objective import make_objective
+from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+from photon_ml_tpu_torch.parallel.data_parallel import fit_distributed
 from photon_ml_tpu_torch.types import build_csc_transpose, csc_transpose_apply
 
 pytestmark = pytest.mark.cuda
@@ -66,3 +75,51 @@ def test_csc_transpose_apply_kernel_accuracy(cuda):
 def test_kernel_rejects_other_tiles(cuda):
     with pytest.raises(ValueError):
         multiply_prefix_sum(None, torch.ones(10, device=cuda), tile=1024)
+
+
+def _fit_inputs(seed=1, n=4096, dim=1024, k=39):
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, dim, (n, k)).astype(np.int32)
+    w_true = r.normal(size=dim) * 0.5
+    y = (r.random(n) < 1 / (1 + np.exp(-w_true[idx].sum(1)))).astype(float)
+    return idx, y, dim
+
+
+@pytest.mark.parametrize("optimizer", ["owlqn", "tron"])
+def test_fit_on_card_matches_cpu(cuda, optimizer):
+    """The same f64 fit through the kernel on the card and through its
+    plain version on the CPU: rel L2 of w within 1e-9 (the two scan in
+    different orders); two card runs bit-identical; OWL-QN launches the
+    kernel once per iteration plus once at the start."""
+    idx, y, dim = _fit_inputs()
+    fits = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        batch = batch_from_numpy(idx, None, y, dim=dim, dtype=torch.float64,
+                                 device=dev)
+        launches = multiply_prefix_sum.launches
+        res = fit_distributed(
+            make_objective("logistic"), batch,
+            torch.zeros(dim, dtype=torch.float64, device=dev), l2=1.0,
+            l1=2.0, optimizer=optimizer,
+            config=OptimizerConfig(max_iters=8, tolerance=0.0),
+            sparse_grad="csc_kernel")
+        launched = multiply_prefix_sum.launches - launches
+        fits.setdefault(dev, []).append((res, launched))
+    cpu, (card, launched), (again, _) = fits["cpu"][0][0], *fits["cuda"]
+    assert card.iterations == cpu.iterations == 8
+    rel = float((card.w.cpu() - cpu.w).norm() / cpu.w.norm())
+    assert rel < 1e-9
+    assert torch.equal(card.w, again.w)
+    if optimizer == "owlqn":
+        assert launched == card.iterations + 1
+    else:
+        assert launched >= 2 * card.iterations + 1
+
+
+def test_device_auc_on_card(cuda):
+    r = np.random.default_rng(2)
+    labels = (r.random(1 << 16) < 0.3).astype(float)
+    scores = np.round(r.normal(size=labels.size) + labels, 2)  # ties
+    weights = r.random(labels.size) + 0.5
+    got = float(device_auc(scores, labels, weights, device=cuda))
+    assert abs(got - auc(scores, labels, weights)) <= 1e-12

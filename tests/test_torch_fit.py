@@ -190,16 +190,27 @@ def test_sparse_grad_modes_and_black_box_agree():
 
 
 def test_fit_rejects_unported_paths():
+    """Every optimizer, line search and sparse_grad mode of the JAX
+    package's one-device fit is ported; what is left to reject is what JAX
+    rejects too (a precomputed view the mode does not use, an unknown
+    optimizer) and names that no package knows."""
     idx, vals, y, offsets, weights, dim = _sparse_data(False, n=64)
     tb = batch_from_numpy(idx, vals, y, dim=dim, dtype=torch.float64,
                           device="cpu")
     obj, w0 = make_objective("logistic"), torch.zeros(dim, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        fit_distributed(obj, tb, w0, optimizer="owlqn")
-    with pytest.raises(NotImplementedError):
-        fit_distributed(obj, tb, w0, line_search="full")
+    cfg = OptimizerConfig(max_iters=2, tolerance=0.0)
+    for optimizer in ("owlqn", "tron"):
+        assert fit_distributed(obj, tb, w0, l1=0.1, optimizer=optimizer,
+                               config=cfg).iterations == 2
+    for mode in ("csc_precise", "csc_segment"):
+        assert fit_distributed(obj, tb, w0, config=cfg, sparse_grad=mode,
+                               line_search="full").iterations == 2
     with pytest.raises(ValueError):
-        fit_distributed(obj, tb, w0, sparse_grad="csc_segment")
+        fit_distributed(obj, tb, w0, optimizer="sgd")
+    with pytest.raises(ValueError):
+        fit_distributed(obj, tb, w0, line_search="exact")
+    with pytest.raises(ValueError):
+        fit_distributed(obj, tb, w0, sparse_grad="csc_pallas")
     with pytest.raises(ValueError):
         fit_distributed(obj, tb, w0, sparse_grad="scatter",
                         precomputed_csc=build_csc(tb))

@@ -67,7 +67,11 @@ def test_kernel_blocked_accuracy_all_positive():
     indices = torch.from_numpy(r.integers(0, dim, (n, k)).astype(np.int32))
     csc = tt.build_csc_transpose(indices, None, dim)
     d = r.random(n) + 0.5
-    got = csc_transpose_apply_kernel(csc, torch.from_numpy(d).float())
+    d32 = torch.from_numpy(d).float()
+    local, totals, _ = multiply_prefix_sum(None, d32[csc.rows])
+    assert local.dtype == totals.dtype == torch.float64  # float64 prefix
+    got = csc_transpose_apply_kernel(csc, d32)
+    assert got.dtype == torch.float32
     ref = np.zeros(dim)
     np.add.at(ref, indices.numpy().reshape(-1), np.repeat(d, k))
     rel = np.abs(got.double().numpy() - ref) / np.maximum(ref, 1e-30)

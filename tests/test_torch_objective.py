@@ -119,6 +119,9 @@ def test_value_and_grad_match(features, norm):
     _close(tobj.predict(tw, tb), jobj.predict(jnp.asarray(w), jb))
     if tctx is not None:
         _close(tctx.to_model_space(tw), jctx.to_model_space(jnp.asarray(w)))
+        _close(tctx.to_training_space(tw),
+               jctx.to_training_space(jnp.asarray(w)))
+        _close(tctx.to_training_space(tctx.to_model_space(tw)), w)
 
 
 def test_normalization_contexts_match():
@@ -146,3 +149,24 @@ def test_kkt_residuals_match():
     _close(t_kkt(torch.from_numpy(w), torch.from_numpy(g), 0.5,
                  torch.from_numpy(mask)),
            j_kkt(jnp.asarray(w), jnp.asarray(g), 0.5, jnp.asarray(mask)))
+
+
+def test_regularization_matches():
+    """The copied host-side module gives the JAX package's weights,
+    thresholds and slack."""
+    from photon_ml_tpu.ops import regularization as jr
+    from photon_ml_tpu_torch.ops import regularization as tr
+
+    for kind in ("none", "l1", "l2", "elastic_net"):
+        j = jr.RegularizationContext(kind, alpha=0.3)
+        t = tr.RegularizationContext(kind, alpha=0.3)
+        assert (t.l1_weight(2.0), t.l2_weight(2.0), t.needs_owlqn) == (
+            j.l1_weight(2.0), j.l2_weight(2.0), j.needs_owlqn)
+    for rule in ("strong", "safe"):
+        assert tr.screening_threshold(rule, 1.0, 1.5, 0.2) == \
+            jr.screening_threshold(rule, 1.0, 1.5, 0.2)
+    assert tr.kkt_slack(0.5, 1e-6) == jr.kkt_slack(0.5, 1e-6)
+    with pytest.raises(ValueError):
+        tr.RegularizationContext("l1", alpha=1.5)
+    with pytest.raises(ValueError):
+        tr.screening_threshold("bogus", 1.0, 2.0)

@@ -102,3 +102,56 @@ def test_make_batch_defaults():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert b.features.indices.dtype == torch.int32
     assert (b.num_examples, b.dim) == (10, dim)
+
+
+@pytest.mark.parametrize("pad_to", [None, 9])
+def test_sparse_conversions_match(pad_to):
+    """``sparse_from_scipy`` / ``sparse_from_rows`` / scipy input to
+    ``make_batch`` give JAX's ELL arrays bit for bit; ``todense`` and the
+    row slices of both packages agree exactly."""
+    import scipy.sparse as sp
+
+    r = np.random.default_rng(5)
+    dense = r.normal(size=(12, 9)) * (r.random((12, 9)) < 0.35)
+    mat = sp.csr_matrix(dense)
+    got = tt.sparse_from_scipy(mat, dtype=torch.float64, pad_to=pad_to,
+                               device="cpu")
+    want = jt.sparse_from_scipy(mat, dtype=jnp.float64, pad_to=pad_to)
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(want.indices))
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    np.testing.assert_array_equal(got.todense().numpy(), dense)
+    np.testing.assert_array_equal(got.todense().numpy(),
+                                  np.asarray(want.todense()))
+    rows = [list(zip(np.nonzero(row)[0], row[np.nonzero(row)[0]]))
+            for row in dense]
+    from_rows = tt.sparse_from_rows(rows, 9, dtype=torch.float64,
+                                    pad_to=pad_to, device="cpu")
+    want_rows = jt.sparse_from_rows(rows, 9, dtype=jnp.float64,
+                                    pad_to=pad_to)
+    np.testing.assert_array_equal(from_rows.indices.numpy(),
+                                  np.asarray(want_rows.indices))
+    np.testing.assert_array_equal(from_rows.values.numpy(),
+                                  np.asarray(want_rows.values))
+    b = tt.make_batch(mat, np.ones(12), dtype=torch.float64, device="cpu")
+    np.testing.assert_array_equal(b.features.todense().numpy(), dense)
+    sl, jsl = b.slice_rows(3, 5), jt.make_batch(
+        mat, np.ones(12), dtype=jnp.float64).slice_rows(3, 5)
+    assert sl.num_examples == 5 and sl.features.num_rows == 5
+    np.testing.assert_array_equal(sl.features.todense().numpy(),
+                                  np.asarray(jsl.features.todense()))
+    moved = sl.with_offsets(torch.full((5,), 2.0, dtype=torch.float64))
+    assert float(moved.offsets.sum()) == 10.0 and moved.labels is sl.labels
+    with pytest.raises(ValueError, match="pad_to"):
+        tt.sparse_from_scipy(mat, pad_to=1, device="cpu")
+    with pytest.raises(ValueError, match="out of range"):
+        tt.sparse_from_rows([[(9, 1.0)]], 9, device="cpu")
+    with pytest.raises(ValueError, match="negative"):
+        tt.sparse_from_rows([[(-1, 1.0)]], 9, device="cpu")
+
+
+def test_dense_batch_slice_rows():
+    X = np.arange(24.0).reshape(8, 3)
+    b = tt.make_batch(X, np.zeros(8), dtype=torch.float64, device="cpu")
+    np.testing.assert_array_equal(b.slice_rows(2, 3).features.numpy(),
+                                  X[2:5])
