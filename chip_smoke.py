@@ -37,7 +37,26 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    scores: ``device_auc`` on the card (float64) within 1e-6 of the host
    ``evaluators.auc``, and ``histogram_auc`` within 1e-3.
 
-Each fit's launch count is set to 0 just before it and read just after.
+9. the GLM driver (``photon_ml_tpu_torch.cli.glm_driver.main``) in this
+   process, on a Criteo-shaped Avro dataset that the port's own writer
+   builds from a seed in 10 worker processes: 39 categorical features per
+   row (``c0`` ... ``c38``), hashed into 2^18 slots plus the intercept (k =
+   40 explicit-values nonzeros per row), labels from a planted logistic
+   model over the hashed slots, 2^17 training rows in 8 files (cut from the
+   main path's 2^21 so that the pure-Python writer finishes in under half
+   a minute) and
+   2^15 validation rows. Lambda grid [10, 1, 0.1], L-BFGS, 20 iterations at
+   tolerance 0, AUC on the validation data. It prints which Avro decoder
+   ran, each stage's seconds from ``photon.log.jsonl``, and per lambda the
+   iterations, fit seconds, kernel launches, loss and AUC. Gates: the
+   kernel launches at least once per lambda; the first lambda's ``w`` is
+   within 1e-3 relative L2 of the plain ``"csc"`` fit of the same batch;
+   ``best/``, reloaded by ``load_game_model``, scores the validation rows
+   exactly as the run did; the best validation AUC is above 0.6. The
+   kernel's with-values time at this path's nnz is taken beside its bound.
+
+Each fit's launch count is set to 0 just before it and read just after
+(for phase 9: before and after the driver's run).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -53,6 +72,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_ROWS, DIM, K, ITERS = 1 << 21, 1 << 18, 39, 20
@@ -65,6 +85,12 @@ TOL_APPLY = 1e-4  # relative error of X^T d on all-positive d
 TOL_FIT = 1e-3  # relative L2 difference of w between two fits
 TOL_AUC = 1e-6  # device_auc against the host float64 auc
 TOL_HIST_AUC = 1e-3  # the 4096-bin histogram AUC against the host auc
+# phase 9, the GLM driver: 8 training files of 2^14 rows, 2^15 validation
+# rows written as 2 files, 39 hashed categorical features plus the intercept
+DRIVER_FILES, DRIVER_FILE_ROWS, DRIVER_VAL_FILES = 8, 1 << 14, 2
+DRIVER_FEATURES, DRIVER_HASH_DIM = 39, 1 << 18
+DRIVER_GRID = ("10", "1", "0.1")
+DRIVER_MIN_AUC = 0.6
 # peak device-memory rate and float32 (non-tensor-core) rate, by card
 # (NVIDIA data sheets, SXM parts)
 PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
@@ -142,28 +168,32 @@ def check_scan(nnz: int, with_values: bool, gen, dev):
     return errs["kernel"]
 
 
-def time_scan(nnz: int, gen, dev, peaks):
-    """Kernel, plain and torch.cumsum times at the main path's shape
-    (implicit ones, float32), and the bound for the same work."""
+def time_scan(nnz: int, gen, dev, peaks, with_values: bool = False):
+    """Kernel, plain and torch.cumsum times at a path's shape (float32;
+    implicit ones unless ``with_values``), and the bound for the same
+    work."""
     from photon_ml_tpu_torch.ops.kernels import (
         TILE, multiply_prefix_sum, multiply_prefix_sum_plain,
     )
 
     d = torch.randn(nnz, generator=gen, device=dev)
+    values = torch.randn(nnz, generator=gen, device=dev) if with_values else None
     n_tiles = max(-(-nnz // TILE), 1)
     padded = torch.zeros(n_tiles * TILE, device=dev)
-    padded[:nnz] = d
+    padded[:nnz] = d if values is None else values * d
     view = padded.view(n_tiles, TILE)
     reps = 20
-    kernel_ms = cuda_ms(lambda: multiply_prefix_sum(None, d), reps)
-    plain_ms = cuda_ms(lambda: multiply_prefix_sum_plain(None, d, TILE), reps)
+    kernel_ms = cuda_ms(lambda: multiply_prefix_sum(values, d), reps)
+    plain_ms = cuda_ms(lambda: multiply_prefix_sum_plain(values, d, TILE),
+                       reps)
     library_ms = cuda_ms(
         lambda: torch.cumsum(view, dim=1, dtype=torch.float64), reps)
-    # read the float32 d_sorted once, write the float64 local and totals
-    # once; one add per element
-    nbytes = 4 * nnz + 8 * (n_tiles * TILE + n_tiles)
+    # read the float32 d_sorted (and values) once, write the float64 local
+    # and totals once; one add (and one multiply) per element
+    nbytes = (8 if with_values else 4) * nnz + 8 * (n_tiles * TILE + n_tiles)
     bw, flops = peaks
-    bytes_ms, ops_ms = nbytes / bw * 1e3, nnz / flops * 1e3
+    ops = (2 if with_values else 1) * nnz
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / flops * 1e3
     return {
         "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bytes": nbytes,
@@ -367,8 +397,6 @@ def phase_full_line_search(gen, dev, smi):
 def phase_auc(w, batch, smi):
     """The phase-5 model's scores on the card: exact and histogram AUC
     against the host float64 evaluator."""
-    import numpy as np
-
     from photon_ml_tpu_torch.evaluation.device import (
         device_auc, histogram_auc,
     )
@@ -399,6 +427,226 @@ def phase_auc(w, batch, smi):
         raise RuntimeError(f"device_auc differs from the host auc {host}")
     if not abs(results["histogram_auc f32"][0] - host) <= TOL_HIST_AUC:
         raise RuntimeError(f"histogram_auc differs from the host auc {host}")
+
+
+def fnv1a_64_rows(keys) -> "np.ndarray":
+    """FNV-1a 64 of equal-length byte strings, vectorized over the rows
+    (``io.hashing.fnv1a_64`` one key at a time is too slow for a vocabulary
+    of hundreds of thousands of terms)."""
+    raw = np.frombuffer(b"".join(keys), np.uint8).reshape(len(keys), -1)
+    h = np.full(len(keys), 0xCBF29CE484222325, np.uint64)
+    for col in raw.T:
+        h = (h ^ col.astype(np.uint64)) * np.uint64(0x100000001B3)
+    return h
+
+
+def make_driver_terms(n_rows, seed):
+    """Criteo-shaped categorical rows: per feature ``c{j}`` a cardinality
+    between 10 and 10^5 (log-uniform) and skewed term draws; labels from a
+    planted logistic model over the hashed slots. Returns (term ids
+    [n_rows, 39] int32, labels)."""
+    from photon_ml_tpu_torch.io.hashing import fnv1a_64
+    from photon_ml_tpu_torch.io.schemas import feature_key
+
+    rng = np.random.default_rng(seed)
+    sizes = np.round(10.0 ** rng.uniform(1, 5, DRIVER_FEATURES)).astype(int)
+    ids = np.empty((n_rows, DRIVER_FEATURES), np.int32)
+    slots = np.empty((n_rows, DRIVER_FEATURES), np.int64)
+    for j, size in enumerate(sizes):
+        ids[:, j] = np.floor(size * rng.random(n_rows) ** 3)
+        keys = [feature_key(f"c{j}", f"{t:05x}").encode()
+                for t in range(size)]
+        vocab = fnv1a_64_rows(keys) % np.uint64(DRIVER_HASH_DIM)
+        if int(vocab[-1]) != fnv1a_64(keys[-1]) % DRIVER_HASH_DIM:
+            raise RuntimeError("vectorized FNV-1a disagrees with io.hashing")
+        slots[:, j] = vocab[ids[:, j]].astype(np.int64)
+    w_true = rng.normal(0.0, 0.3, DRIVER_HASH_DIM)
+    logits = w_true[slots].sum(axis=1) - 0.5
+    labels = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-logits))).astype(float)
+    return ids, labels
+
+
+def write_driver_part(task):
+    """Worker: one Avro file of TrainingExampleAvro records (value 1.0 per
+    categorical term) through the port's writer."""
+    path, ids, labels = task
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+
+    rows = ([(f"c{j}", f"{t:05x}", 1.0) for j, t in enumerate(row)]
+            for row in ids.tolist())
+    write_training_examples(path, rows, labels)
+    return path
+
+
+def write_driver_fixture(root, file_rows, n_files, n_val_files):
+    """The training files under ``root/train`` and the validation files
+    under ``root/validation``, written by ``n_files + n_val_files`` worker
+    processes."""
+    import multiprocessing
+    import os
+
+    n_parts = n_files + n_val_files
+    ids, labels = make_driver_terms(n_parts * file_rows, SEED)
+    tasks = []
+    for part in range(n_parts):
+        sub = "train" if part < n_files else "validation"
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        rows = slice(part * file_rows, (part + 1) * file_rows)
+        tasks.append((os.path.join(root, sub, f"part-{part:02d}.avro"),
+                      ids[rows], labels[rows]))
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(n_parts, os.cpu_count() or 1)) as pool:
+        pool.map(write_driver_part, tasks)
+    return os.path.join(root, "train"), os.path.join(root, "validation")
+
+
+class _RecordingEvaluator:
+    """Stands in for an evaluator inside the driver and keeps each score
+    vector it is handed."""
+
+    def __init__(self, inner, scored):
+        self.inner, self.scored = inner, scored
+
+    def evaluate(self, scores, labels, weights=None, group_ids=None):
+        self.scored.append(np.array(scores))
+        return self.inner.evaluate(scores, labels, weights, group_ids)
+
+    def better(self, a, b):
+        return self.inner.better(a, b)
+
+
+def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
+                 n_files=DRIVER_FILES, n_val_files=DRIVER_VAL_FILES):
+    """The GLM driver end to end on a written Avro dataset (phase 9).
+    Returns (kernel launches in the driver's run, the kernel's with-values
+    timing at this path's nnz)."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io.hashing import HashingIndexMap
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.types import margins
+
+    n_train, n_val = n_files * file_rows, n_val_files * file_rows
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_glm_") as root:
+        t0 = time.perf_counter()
+        train_dir, val_dir = write_driver_fixture(root, file_rows, n_files,
+                                                  n_val_files)
+        print(f"driver fixture: {n_train} training rows in {n_files} files "
+              f"and {n_val} validation rows, {DRIVER_FEATURES} categorical "
+              f"features hashed into {DRIVER_HASH_DIM} slots plus the "
+              f"intercept, written in {time.perf_counter() - t0:.2f} s by "
+              f"{n_files + n_val_files} processes (depth cut from the main "
+              f"path's {N_ROWS} rows)")
+        out = os.path.join(root, "out")
+        argv = ["--train-data", train_dir, "--validation-data", val_dir,
+                "--input-format", "avro", "--hash-dim", str(DRIVER_HASH_DIM),
+                "--reg-weights", *DRIVER_GRID, "--optimizer", "lbfgs",
+                "--max-iters", str(ITERS), "--tolerance", "0",
+                "--evaluators", "auc", "--device", str(dev),
+                "--output-dir", out]
+        fits, scored = [], []
+        real_fit, real_get = glm_driver.fit_distributed, glm_driver.get_evaluator
+
+        def counted_fit(objective, batch, w0, **kw):
+            torch.cuda.synchronize()
+            before = multiply_prefix_sum.launches
+            from_zero = bool((w0 == 0).all())
+            t_fit = time.perf_counter()
+            res = real_fit(objective, batch, w0, **kw)
+            float(res.value)  # scalar fetch: the fit has run
+            fits.append({"objective": objective, "batch": batch, "kw": kw,
+                         "res": res, "from_zero": from_zero,
+                         "seconds": time.perf_counter() - t_fit,
+                         "launches": multiply_prefix_sum.launches - before})
+            return res
+
+        glm_driver.fit_distributed = counted_fit
+        glm_driver.get_evaluator = \
+            lambda name: _RecordingEvaluator(real_get(name), scored)
+        try:
+            torch.cuda.synchronize()
+            multiply_prefix_sum.launches = 0
+            t0 = time.perf_counter()
+            rc = glm_driver.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = multiply_prefix_sum.launches
+        finally:
+            glm_driver.fit_distributed = real_fit
+            glm_driver.get_evaluator = real_get
+        if rc != 0:
+            raise RuntimeError(f"glm_driver exited with {rc}")
+        with open(os.path.join(out, "photon.log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        read = next(e for e in log if e["event"] == "data_read")
+        print(f"glm_driver: {seconds:.3f} s in all, {launches} kernel "
+              f"launches, Avro decoder: {read['decoder']}, "
+              f"{read['num_train']} + {read['num_validation']} rows, "
+              f"{read['num_features']} features, on {smi}")
+        for e in log:
+            if e["event"] == "stage_timing":
+                print(f"  stage {e['stage']}: {e['seconds']:.4f} s")
+        trained = [e for e in log if e["event"] == "lambda_trained"]
+        if len(trained) != len(DRIVER_GRID) or len(fits) != len(DRIVER_GRID):
+            raise RuntimeError(f"{len(trained)} lambdas logged, {len(fits)} "
+                               f"fits for a grid of {len(DRIVER_GRID)}")
+        for e, fit in zip(trained, fits):
+            print(f"  lambda {e['reg_weight']:g}: {e['iterations']} "
+                  f"iterations, fit {fit['seconds']:.4f} s, "
+                  f"{fit['launches']} kernel launches, loss "
+                  f"{e['loss']:.4f}, auc {e['metrics']['auc']:.6f}")
+            if fit["launches"] < 1:
+                raise RuntimeError(f"lambda {e['reg_weight']}: the kernel "
+                                   "did not launch")
+        done = log[-1]
+        best = done["best_reg_weight"]
+        best_auc = done["best_metrics"]["auc"]
+        print(f"  best lambda {best:g}, validation auc {best_auc:.6f} "
+              f"(gate > {DRIVER_MIN_AUC})")
+        if not best_auc > DRIVER_MIN_AUC:
+            raise RuntimeError(f"validation auc {best_auc} <= {DRIVER_MIN_AUC}")
+
+        # the first lambda, from zeros, against the plain "csc" fit
+        first = fits[0]
+        if not first["from_zero"]:
+            raise RuntimeError("the first lambda did not start from zeros")
+        batch = first["batch"]
+        w0 = torch.zeros(batch.dim, dtype=first["res"].w.dtype, device=dev)
+        kw = dict(first["kw"], sparse_grad="csc")
+        plain = real_fit(first["objective"], batch, w0, **kw)
+        check_plain(f"glm_driver lambda {DRIVER_GRID[0]}", first["res"], plain)
+
+        # best/ reloaded scores the validation rows as the run did
+        best_i = [float(g) for g in DRIVER_GRID].index(best)
+        model = load_game_model(os.path.join(out, "best"), device=dev)
+        w_best = model["global"].model.coefficients.means.to(batch.labels.dtype)
+        vhost, _, voffsets, _, _, _, _ = glm_driver._read(
+            [val_dir], "avro",
+            HashingIndexMap(DRIVER_HASH_DIM, add_intercept=True), True)
+        vfeats = glm_driver._device_batch(vhost, np.zeros(n_val), voffsets,
+                                          np.ones(n_val), batch.labels.dtype,
+                                          dev).features
+        rescored = (margins(vfeats, w_best)
+                    + torch.as_tensor(voffsets, dtype=w_best.dtype,
+                                      device=dev)).cpu().numpy()
+        if not np.array_equal(rescored, scored[best_i]):
+            raise RuntimeError(
+                "best/ reloaded scores the validation rows differently: max "
+                f"|diff| {np.abs(rescored - scored[best_i]).max():.3e}")
+        print(f"  best/ reloaded with load_game_model: its {n_val} validation "
+              "scores equal the run's bit for bit")
+    nnz = int(batch.features.indices.numel())
+    timing = time_scan(nnz, gen, dev, peaks, with_values=True)
+    print(f"multiply_prefix_sum at the driver's nnz={nnz} (explicit values, "
+          f"f32): kernel {timing['kernel_ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, torch.cumsum "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bytes'] / 1e6:.1f} MB by {timing['bound_by']}) on "
+          f"{smi}")
+    return launches, dict(timing, nnz=nnz)
 
 
 def main() -> int:
@@ -510,6 +758,8 @@ def main() -> int:
             gen, dev, smi),
     }
     phase_auc(res.w, batch, smi)
+    launches_by_path["glm_driver"], driver_timing = phase_driver(
+        dev, smi, peaks, gen)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -528,6 +778,10 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+        "glm_driver_with_values": {
+            key: driver_timing[key] for key in (
+                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,5 +6,7 @@ counterpart there (``types``, ``ops.losses``, ``optimize.lbfgs_margin``,
 ``photon_ml_tpu``. Entry points place data on ``cuda`` unless the caller
 passes ``device="cpu"``; the one hand-written CUDA kernel
 (``ops.kernels.multiply_prefix_sum``) launches on CUDA tensors and takes
-its plain PyTorch version on CPU tensors.
+its plain PyTorch version on CPU tensors. ``native/`` holds host-side C++
+libraries (the Avro decoder and the feature index store), built with
+``g++`` at first use; they are not device kernels.
 """

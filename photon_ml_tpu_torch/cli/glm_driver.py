@@ -1,0 +1,502 @@
+"""Classic (non-GAME) GLM training driver — the staged pipeline (counterpart
+of ``photon_ml_tpu/cli/glm_driver.py``: its in-memory, single-device path).
+
+A fixed sequence of stages for a single fixed-effect GLM: read → index →
+validate → summarize/normalize → train one model per regularization weight
+with **warm start** across the lambda grid → validate + select best →
+diagnostics → save. The output tree and the stage names and keys of
+``photon.log.jsonl`` are the JAX driver's, so either package's tooling
+reads the other's runs, and a model saved here loads there.
+
+The data goes to ``--device`` (default ``cuda``, which raises without a
+GPU; ``--device cpu`` runs everything on the CPU). The column-sorted view
+behind the sparse gradient is built once for the whole grid, and every
+gradient of every lambda's fit goes through ``ops.kernels``'s
+``multiply_prefix_sum`` (the hand-written CUDA kernel on the card, its
+plain version on the CPU).
+
+Flags of the JAX driver that select parts of the port not written yet
+(streaming, multi-process, recovery, path screening, profiling) are
+accepted by the parser and raise, naming the ROADMAP item that ports them;
+the settings that only refine those parts (``--chunk-rows``,
+``--path-kkt-tol`` and the like) are not accepted.
+
+Usage:
+    python -m photon_ml_tpu_torch.cli.glm_driver \\
+        --train-data a1a --input-format libsvm --task logistic_regression \\
+        --reg-weights 0.1 1.0 10.0 --optimizer lbfgs --output-dir out/
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch import diagnostics
+from photon_ml_tpu_torch.evaluation import get_evaluator
+from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
+from photon_ml_tpu_torch.game.data import HostSparse
+from photon_ml_tpu_torch.io.avro import iter_avro_records, write_avro_file
+from photon_ml_tpu_torch.io.data_reader import decode_training_examples
+from photon_ml_tpu_torch.io.index_map import IndexMap, build_index_map
+from photon_ml_tpu_torch.io.libsvm import read_libsvm
+from photon_ml_tpu_torch.io.model_io import save_game_model
+from photon_ml_tpu_torch.io.schemas import (
+    FEATURE_SUMMARIZATION_SCHEMA, split_feature_key,
+)
+from photon_ml_tpu_torch.io.validators import validate_training_data
+from photon_ml_tpu_torch.models import (
+    Coefficients,
+    FixedEffectModel,
+    GameModel,
+    GeneralizedLinearModel,
+)
+from photon_ml_tpu_torch.ops.losses import TASK_TO_LOSS
+from photon_ml_tpu_torch.ops.normalization import (
+    NormalizationType,
+    build_normalization_context,
+)
+from photon_ml_tpu_torch.ops.objective import make_objective
+from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+from photon_ml_tpu_torch.ops.statistics import summarize_features
+from photon_ml_tpu_torch.optimize import (
+    OptimizerConfig, parse_tolerance_schedule,
+)
+from photon_ml_tpu_torch.parallel.data_parallel import (
+    build_csc, fit_distributed, resolve_sparse_grad,
+)
+from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
+from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
+
+# flags of the JAX driver whose code paths are not ported yet, by the
+# ROADMAP Queue 1 item that ports them; each raises when set to anything
+# but its default
+_DEFERRED = {
+    "streaming": "16 (streaming)",
+    "out_of_core": "16 (streaming)",
+    "chunk_cache_dir": "16 (streaming)",
+    "chunk_cache_gb": "16 (streaming)",
+    "prefetch_depth": "16 (streaming)",
+    "pad_nnz": "16 (streaming)",
+    "coordinator_address": "15 and 17 (multi-device and multi-host)",
+    "num_processes": "15 and 17 (multi-device and multi-host)",
+    "process_id": "15 and 17 (multi-device and multi-host)",
+    "auto_resume": "17 (recovery)",
+    "max_rank_failures": "17 (recovery)",
+    "path_screen": "9 (the path solver)",
+    "profile_dir": "20 (observability)",
+    "trace_dir": "20 (observability)",
+}
+
+
+def _tol_schedule(value: str):
+    try:
+        return parse_tolerance_schedule(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Classic GLM training driver "
+                                            "(staged pipeline, PyTorch)")
+    p.add_argument("--train-data", required=True, nargs="+")
+    p.add_argument("--validation-data", nargs="+", default=None)
+    p.add_argument("--input-format", default="avro", choices=["avro", "libsvm"])
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--task", default="logistic_regression",
+                   choices=sorted(TASK_TO_LOSS) + sorted(set(TASK_TO_LOSS.values())))
+    p.add_argument("--optimizer", default="lbfgs",
+                   choices=["lbfgs", "owlqn", "tron"])
+    p.add_argument("--reg-type", default="l2",
+                   choices=["none", "l1", "l2", "elastic_net"])
+    p.add_argument("--reg-weights", type=float, nargs="+", default=[0.0],
+                   help="lambda grid; trained in order with warm start")
+    p.add_argument("--elastic-net-alpha", type=float, default=0.5)
+    p.add_argument("--max-iters", type=int, default=100)
+    p.add_argument("--tolerance", type=float, default=1e-7)
+    p.add_argument("--solver-tol-schedule", type=_tol_schedule, default=None,
+                   metavar="START:DECAY",
+                   help="inexact path-following over the lambda grid: the "
+                        "i-th lambda solves to max(--tolerance, START * "
+                        "DECAY^i) (e.g. 1e-3:0.1; 'off' disables)")
+    p.add_argument("--normalization", default="none",
+                   choices=[t.value for t in NormalizationType])
+    p.add_argument("--add-intercept", action="store_true", default=True)
+    p.add_argument("--no-intercept", dest="add_intercept", action="store_false")
+    p.add_argument("--index-map", default=None,
+                   help="prebuilt index map (avro input only)")
+    p.add_argument("--hash-dim", type=int, default=None,
+                   help="feature-hash into this width instead of building an "
+                        "index map (avro input only)")
+    p.add_argument("--min-feature-count", type=int, default=1)
+    p.add_argument("--evaluators", nargs="*", default=None)
+    p.add_argument("--validate-data", action="store_true", default=True,
+                   help="run DataValidators-style checks before training")
+    p.add_argument("--no-validate-data", dest="validate_data",
+                   action="store_false")
+    p.add_argument("--compute-variances", action="store_true",
+                   help="diagonal-inverse-Hessian coefficient variances")
+    p.add_argument("--summarize-features", action="store_true")
+    p.add_argument("--diagnostics", action="store_true",
+                   help="write diagnostics.json for the best model: Hosmer-"
+                        "Lemeshow fit test (binary), feature importance, "
+                        "optional bootstrap CIs")
+    p.add_argument("--bootstrap-replicates", type=int, default=0,
+                   help="bootstrap refits for coefficient CIs (0 disables)")
+    p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the data and the fits (default "
+                        "cuda, which raises without a GPU)")
+    # accepted for parity with the JAX driver; each raises (_DEFERRED)
+    p.add_argument("--path-screen", default="off",
+                   choices=["off", "strong", "safe"])
+    p.add_argument("--auto-resume", action="store_true")
+    p.add_argument("--max-rank-failures", type=int, default=0)
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--out-of-core", action="store_true")
+    p.add_argument("--pad-nnz", type=int, default=None)
+    p.add_argument("--chunk-cache-dir", default=None)
+    p.add_argument("--chunk-cache-gb", type=float, default=None)
+    p.add_argument("--prefetch-depth", type=int, default=None)
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--trace-dir", default=None)
+    return p
+
+
+def _check_deferred(args, parser: argparse.ArgumentParser) -> None:
+    for dest, item in _DEFERRED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported to the PyTorch driver "
+                             f"yet: ROADMAP Queue 1 item {item}")
+
+
+def _read(paths, fmt, index_map: Optional[IndexMap], add_intercept):
+    """-> (HostSparse, labels, offsets, weights, index_map, intercept_index,
+    decoder). Host-side only; device conversion happens after validation.
+    ``decoder`` names what decoded the records: "native" or "python" for
+    Avro, "libsvm" for LIBSVM text."""
+    if fmt == "libsvm":
+        # read raw (no intercept) so multiple files share one feature space,
+        # then append the intercept column at the common dim
+        parts = [read_libsvm(p) for p in paths]
+        # an index_map (from the training pass) pins the feature space, so
+        # validation files line up with the trained model: features beyond it
+        # are dropped, missing ones stay implicit zeros
+        if index_map is not None:
+            base_dim = index_map.size - (
+                1 if index_map.intercept_index >= 0 else 0
+            )
+            for sp, _, _ in parts:
+                drop = sp.indices >= base_dim
+                sp.indices[drop] = 0
+                sp.values[drop] = 0.0
+        else:
+            base_dim = max(sp.dim for sp, _, _ in parts)
+        intercept = base_dim if add_intercept else -1
+        dim = base_dim + (1 if add_intercept else 0)
+        k = max(sp.values.shape[1] for sp, _, _ in parts) + (
+            1 if add_intercept else 0
+        )
+        n = sum(sp.num_rows for sp, _, _ in parts)
+        indices = np.zeros((n, k), np.int32)
+        values = np.zeros((n, k))
+        at = 0
+        for sp, _, _ in parts:
+            m, kk = sp.values.shape
+            indices[at:at + m, :kk] = sp.indices
+            values[at:at + m, :kk] = sp.values
+            if add_intercept:
+                indices[at:at + m, kk] = intercept
+                values[at:at + m, kk] = 1.0
+            at += m
+        labels = np.concatenate([lab for _, lab, _ in parts])
+        feats = HostSparse(indices, values, dim)
+        if index_map is None:
+            entries = {f"f{i}": i for i in range(base_dim)}
+            if intercept >= 0:
+                entries["(INTERCEPT)"] = intercept
+            index_map = IndexMap(entries)
+        return (feats, labels, np.zeros(n), np.ones(n), index_map, intercept,
+                "libsvm")
+    (feats, labels, offsets, weights, _, _), decoder = \
+        decode_training_examples(paths, index_map)
+    return (feats["global"], labels, offsets, weights, index_map,
+            index_map.intercept_index, decoder)
+
+
+def _write_summary(output_dir, summary, imap: IndexMap):
+    """``feature-summary.avro``: one FeatureSummarizationResultAvro record
+    per feature (the GAME training driver's summary file)."""
+    inverse = imap.inverse()
+
+    def records():
+        for i in range(summary.dim):
+            name, term = split_feature_key(inverse[i])
+            yield {
+                "name": name, "term": term,
+                "mean": float(summary.mean[i]),
+                "variance": float(summary.variance[i]),
+                "min": float(summary.min[i]), "max": float(summary.max[i]),
+                "numNonzeros": float(summary.num_nonzeros[i]),
+                "count": summary.count,
+            }
+
+    write_avro_file(os.path.join(output_dir, "feature-summary.avro"),
+                    records(), FEATURE_SUMMARIZATION_SCHEMA)
+
+
+def _device_batch(host: HostSparse, labels, offsets, weights, dtype, dev):
+    feats = SparseFeatures(torch.from_numpy(host.indices),
+                           torch.from_numpy(host.values), dim=host.dim)
+    return make_batch(feats, labels, offsets, weights, dtype=dtype,
+                      device=dev)
+
+
+def _runtime_info(dev: torch.device) -> dict:
+    """The JAX driver's topology keys, for one process on one device."""
+    info = {"process_index": 0, "process_count": 1, "local_devices": 1,
+            "global_devices": 1, "platform": dev.type}
+    if dev.type == "cuda":
+        info["device_name"] = torch.cuda.get_device_name(dev)
+    return info
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    _check_deferred(args, parser)
+    return _run(args)
+
+
+def _run(args) -> int:
+    dev = resolve_device(args.device)
+    dtype = resolve_dtype(args.dtype)
+    task = TASK_TO_LOSS.get(args.task, args.task)
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = PhotonLogger(os.path.join(args.output_dir, "photon.log.jsonl"))
+    logger.log("driver_start", driver="glm", args=vars(args),
+               distributed=False, **_runtime_info(dev))
+
+    reg = RegularizationContext(args.reg_type, alpha=args.elastic_net_alpha)
+    optimizer = args.optimizer
+    if reg.needs_owlqn and optimizer != "owlqn":
+        logger.log("optimizer_override", requested=optimizer, used="owlqn",
+                   reason=f"reg_type={args.reg_type} needs OWL-QN")
+        optimizer = "owlqn"
+
+    # -- stage: read + index -------------------------------------------------
+    with Timed(logger, "read_train_data"):
+        index_map = None
+        if args.input_format == "avro":
+            if args.hash_dim:
+                from photon_ml_tpu_torch.io.hashing import HashingIndexMap
+
+                index_map = HashingIndexMap(args.hash_dim,
+                                            add_intercept=args.add_intercept)
+            elif args.index_map:
+                from photon_ml_tpu_torch.io.paldb import load_index_map
+
+                index_map = load_index_map(args.index_map)
+            else:
+                index_map = build_index_map(
+                    iter_avro_records(args.train_data),
+                    add_intercept=args.add_intercept,
+                    min_count=args.min_feature_count,
+                )
+        (host_feats, labels, offsets, weights, index_map,
+         intercept_index, decoder) = _read(
+            args.train_data, args.input_format, index_map, args.add_intercept
+        )
+    validation = None
+    if args.validation_data:
+        with Timed(logger, "read_validation_data"):
+            vhost, vlabels, voffsets, vweights, _, _, _ = _read(
+                args.validation_data, args.input_format, index_map,
+                args.add_intercept,
+            )
+            validation = (vhost, vlabels, voffsets, vweights)
+    logger.log("data_read",
+               num_train=int(labels.shape[0]),
+               num_validation=0 if validation is None else int(vlabels.shape[0]),
+               num_features=host_feats.dim, decoder=decoder)
+
+    # -- stage: validate (on host, before any device transfer) ---------------
+    if args.validate_data:
+        with Timed(logger, "validate_data"):
+            validate_training_data(host_feats, labels, offsets, weights,
+                                   task=task)
+            if validation is not None:
+                validate_training_data(vhost, vlabels, voffsets, vweights,
+                                       task=task)
+
+    # -- stage: summarize + normalization ------------------------------------
+    dim = host_feats.dim
+    batch = _device_batch(host_feats, labels, offsets, weights, dtype, dev)
+    validation_batch = None
+    if validation is not None:
+        validation_batch = _device_batch(vhost, vlabels, voffsets, vweights,
+                                         dtype, dev)
+    norm_type = NormalizationType(args.normalization)
+    normalization = None
+    if norm_type != NormalizationType.NONE or args.summarize_features:
+        with Timed(logger, "feature_summarization"):
+            summary = summarize_features(batch)
+            if args.summarize_features:
+                _write_summary(args.output_dir, summary, index_map)
+            if norm_type != NormalizationType.NONE:
+                normalization = build_normalization_context(
+                    norm_type, summary, intercept_index=intercept_index,
+                    dtype=dtype, device=dev,
+                )
+
+    objective = make_objective(task, normalization=normalization,
+                               intercept_index=intercept_index)
+    opt_config = OptimizerConfig(max_iters=args.max_iters,
+                                 tolerance=args.tolerance)
+
+    evaluators = args.evaluators
+    if evaluators is None:
+        evaluators = [TASK_DEFAULT_EVALUATOR[task]] if validation is not None else []
+
+    # -- stage: train over the lambda grid with warm start -------------------
+    # the column sort behind the csc gradient paths is paid once for the
+    # whole lambda grid, not per fit
+    grid_csc = None
+    sparse_grad = resolve_sparse_grad("auto", batch.features)
+    if sparse_grad.startswith("csc"):
+        grid_csc = build_csc(batch, with_cols=sparse_grad == "csc_segment")
+
+    results = []
+    w = torch.zeros((dim,), dtype=dtype, device=dev)
+    with Timed(logger, "training"):
+        for li, lam in enumerate(args.reg_weights):
+            run_config = opt_config
+            if args.solver_tol_schedule is not None:
+                run_config = dataclasses.replace(
+                    opt_config,
+                    tolerance=args.solver_tol_schedule.at(li, args.tolerance))
+            res = fit_distributed(
+                objective, batch, w,
+                l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
+                optimizer=optimizer, config=run_config,
+                precomputed_csc=grid_csc,
+            )
+            w = res.w  # warm start the next lambda
+            diag = {
+                "reg_weight": lam,
+                "solver_tolerance": float(run_config.tolerance),
+                "screened_dim": int(dim),
+                "loss": float(res.value),
+                "grad_norm": float(res.grad_norm),
+                "iterations": int(res.iterations),
+                "converged": bool(res.converged),
+                "loss_history": [
+                    float(v) for v in res.loss_history.cpu().numpy()
+                    if np.isfinite(v)
+                ],
+            }
+            metrics = {}
+            if validation_batch is not None and evaluators:
+                scores = objective.margins(res.w, validation_batch).cpu().numpy()
+                for name in evaluators:
+                    metrics[name] = get_evaluator(name).evaluate(
+                        scores, vlabels, vweights
+                    )
+                diag["metrics"] = metrics
+            variances = None
+            if args.compute_variances:
+                variances = objective.coefficient_variances(
+                    res.w, batch, reg.l2_weight(lam)
+                )
+            results.append((lam, res, metrics, variances))
+            logger.log("lambda_trained", **diag)
+
+    # -- stage: validate + select best ---------------------------------------
+    best_i = 0
+    if validation is not None and evaluators:
+        ev = get_evaluator(evaluators[0])
+        for i in range(1, len(results)):
+            if ev.better(results[i][2][evaluators[0]],
+                         results[best_i][2][evaluators[0]]):
+                best_i = i
+
+    if args.diagnostics:
+        lam_best, res_best, _, _ = results[best_i]
+        report = {"reg_weight": lam_best}
+        inverse = index_map.inverse()
+        summary_std = None
+        if norm_type != NormalizationType.NONE or args.summarize_features:
+            summary_std = np.zeros(dim)
+            summary_std[:summary.dim] = summary.std
+        imp = diagnostics.feature_importance(res_best.w.cpu().numpy(),
+                                             summary_std, top_k=50)
+        report["feature_importance"] = [
+            {"feature": inverse.get(int(i), str(int(i))),
+             "score": float(s)}
+            for i, s in zip(imp["index"], imp["score"])
+        ]
+        if validation_batch is not None and task in ("logistic",
+                                                     "smoothed_hinge"):
+            probs = objective.loss.mean(
+                objective.margins(res_best.w, validation_batch)
+            ).cpu().numpy()
+            report["hosmer_lemeshow"] = diagnostics.hosmer_lemeshow(
+                probs, vlabels)
+        if args.bootstrap_replicates > 0:
+            with Timed(logger, "bootstrap"):
+                boot = diagnostics.bootstrap_coefficients(
+                    objective, batch, res_best.w,
+                    l2=reg.l2_weight(lam_best),
+                    n_replicates=args.bootstrap_replicates,
+                )
+            report["bootstrap"] = {
+                "replicates": args.bootstrap_replicates,
+                "std": boot["std"].tolist(),
+                "lower": boot["lower"].tolist(),
+                "upper": boot["upper"].tolist(),
+            }
+        with open(os.path.join(args.output_dir, "diagnostics.json"), "w") as f:
+            json.dump(report, f, indent=2)
+        logger.log("diagnostics_written",
+                   hosmer_lemeshow=report.get("hosmer_lemeshow"))
+
+    # -- stage: model output -------------------------------------------------
+    with Timed(logger, "save_models"):
+        for i, (lam, res, metrics, variances) in enumerate(results):
+            model = GameModel(
+                {"global": FixedEffectModel(
+                    GeneralizedLinearModel(
+                        Coefficients(res.w, variances), task=task
+                    )
+                )},
+                task=task,
+            )
+            out = os.path.join(
+                args.output_dir,
+                "best" if i == best_i else os.path.join("all", f"lambda-{lam:g}"),
+            )
+            save_game_model(model, out, index_map)
+            if i == best_i and len(results) > 1:
+                save_game_model(
+                    model, os.path.join(args.output_dir, "all", f"lambda-{lam:g}"),
+                    index_map,
+                )
+
+    logger.log("driver_done", best_reg_weight=results[best_i][0],
+               best_metrics=results[best_i][2] or None)
+    logger.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3,7 +3,11 @@
 A JAX array becomes a numpy array under ``np.asarray``; these functions take
 such arrays (or any numpy input) and build the port's tensors on ``device``
 (default ``cuda``). A GLM's only weights are its coefficient vector ``w``
-and the normalization vectors.
+and the normalization vectors. Host-side objects of the JAX package cross
+by their numpy fields (duck-typed, so nothing of that package is imported
+here): a ``HostSparse`` becomes a port batch, and a ``GameModel`` the
+port's ``GameModel``. Saved models make the same crossing through files
+(``io/model_io.py`` writes the JAX package's layout).
 """
 
 from __future__ import annotations
@@ -13,6 +17,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.game.data import SketchProjection
+from photon_ml_tpu_torch.models import (
+    Coefficients, FixedEffectModel, GameModel, GeneralizedLinearModel,
+    RandomEffectBucket, RandomEffectModel,
+)
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.types import (
     CSCTranspose, LabeledBatch, SparseFeatures, resolve_device,
@@ -75,3 +84,49 @@ def normalization_from_numpy(factors, shifts, intercept_index: int = -1,
         factors=None if factors is None else _tensor(factors, dtype, dev),
         shifts=None if shifts is None else _tensor(shifts, dtype, dev),
         intercept_index=intercept_index)
+
+
+def batch_from_host_sparse(features, labels, offsets=None, weights=None,
+                           dtype=torch.float32, device=None) -> LabeledBatch:
+    """A LabeledBatch from a host-side padded sparse matrix: the port's or
+    the JAX package's ``HostSparse`` (numpy ``indices``, ``values`` or None,
+    and ``dim``)."""
+    return batch_from_numpy(features.indices, features.values, labels,
+                            offsets, weights, dim=features.dim, dtype=dtype,
+                            device=device)
+
+
+def _optional(a, dtype, dev) -> Optional[torch.Tensor]:
+    return None if a is None else _tensor(a, dtype, dev)
+
+
+def game_model_from_numpy(model, dtype=torch.float64,
+                          device=None) -> GameModel:
+    """The port's GameModel from a GameModel of the JAX package (or any
+    object of the same shape): fixed-effect coefficients become tensors on
+    ``device`` (default ``cuda``); random-effect buckets stay host numpy
+    arrays, as the port's model loader keeps them."""
+    dev = resolve_device(device)
+    coords = {}
+    for name, coord in model.coordinates.items():
+        if hasattr(coord, "buckets"):  # a random effect
+            buckets = [RandomEffectBucket(
+                list(b.entity_ids), np.array(b.coefficients),
+                np.array(b.projection),
+                None if b.variances is None else np.array(b.variances),
+                sketch=(None if b.sketch is None
+                        else SketchProjection(b.sketch.dim, b.sketch.seed)))
+                for b in coord.buckets]
+            coords[name] = RandomEffectModel(
+                coord.effect_name, buckets, coord.task, coord.feature_shard,
+                entity_column=coord.entity_column)
+        else:
+            glm = coord.model
+            coef = glm.coefficients
+            coords[name] = FixedEffectModel(
+                GeneralizedLinearModel(
+                    Coefficients(_tensor(coef.means, dtype, dev),
+                                 _optional(coef.variances, dtype, dev)),
+                    glm.task),
+                coord.feature_shard)
+    return GameModel(coords, model.task)

@@ -1,0 +1,106 @@
+"""Per-feature summary statistics (counterpart of
+``photon_ml_tpu/ops/statistics.py``; the streamed form waits for the port's
+streaming slice).
+
+Equivalent of the reference's ``stat.BasicStatisticalSummary`` (SURVEY.md
+§3.1; reference mount empty): per-feature mean, variance, min/max, nonzero
+count — feeding normalization contexts and the feature-summarization output
+(``FeatureSummarizationResultAvro``). Accumulated on the host in float64;
+sparse features are handled without densifying (zeros counted analytically).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.types import LabeledBatch
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSummary:
+    mean: np.ndarray
+    variance: np.ndarray
+    std: np.ndarray
+    min: np.ndarray
+    max: np.ndarray
+    num_nonzeros: np.ndarray
+    count: int
+
+    @property
+    def dim(self) -> int:
+        return self.mean.shape[0]
+
+
+def summarize_features(batch: LabeledBatch) -> FeatureSummary:
+    """Unweighted per-feature moments (matching the reference's summary used
+    for normalization; weights affect training, not summarization).
+
+    Accumulates on host in float64 regardless of the device dtype: with f32
+    accumulation the E[x^2]-E[x]^2 subtraction loses the variance entirely
+    for large-mean features, which would silently corrupt standardization.
+    Summarization is a one-shot preprocessing stage (a dedicated job in the
+    reference — SURVEY.md §4.1), so host-side f64 is the right trade."""
+    feats = batch.features
+    n = batch.num_examples
+    # duck-typed so host-resident HostSparse (the streaming path, which never
+    # moves the training set to device) summarizes identically; a dense
+    # tensor has an ``indices`` method too, so it is tested for first
+    if not isinstance(feats, torch.Tensor) and hasattr(feats, "indices"):
+        d = feats.dim
+        flat_idx = _host(feats.indices).reshape(-1)
+        if feats.values is None:
+            # implicit-ones layout: every slot is a real 1.0 feature, so
+            # s1 == s2 == nnz == bincount and max == min == 1 where present
+            # (no n*k float materialization — the layout exists to avoid it)
+            nnz = np.bincount(flat_idx, minlength=d).astype(np.float64)
+            s1 = nnz.copy()
+            s2 = nnz.copy()
+            mx = np.where(nnz > 0, 1.0, -np.inf)
+            mn = np.where(nnz > 0, 1.0, np.inf)
+        else:
+            flat_val = _host(feats.values).astype(np.float64).reshape(-1)
+            present = flat_val != 0.0
+            idx, val = flat_idx[present], flat_val[present]
+            s1 = np.zeros(d)
+            s2 = np.zeros(d)
+            nnz = np.zeros(d)
+            np.add.at(s1, idx, val)
+            np.add.at(s2, idx, val**2)
+            np.add.at(nnz, idx, 1.0)
+            mx = np.full(d, -np.inf)
+            mn = np.full(d, np.inf)
+            np.maximum.at(mx, idx, val)
+            np.minimum.at(mn, idx, val)
+        # features absent from a row are implicit zeros
+        has_zero = nnz < n
+        mx = np.where(has_zero, np.maximum(mx, 0.0), mx)
+        mn = np.where(has_zero, np.minimum(mn, 0.0), mn)
+        mx = np.where(np.isfinite(mx), mx, 0.0)
+        mn = np.where(np.isfinite(mn), mn, 0.0)
+    else:
+        X = _host(feats).astype(np.float64)
+        d = X.shape[1]
+        s1 = X.sum(axis=0)
+        s2 = (X**2).sum(axis=0)
+        nnz = (X != 0.0).sum(axis=0).astype(np.float64)
+        mx = X.max(axis=0) if n else np.zeros(d)
+        mn = X.min(axis=0) if n else np.zeros(d)
+    mean = s1 / max(n, 1)
+    var = np.maximum(s2 / max(n, 1) - mean**2, 0.0)
+    return FeatureSummary(
+        mean=mean,
+        variance=var,
+        std=np.sqrt(var),
+        min=mn,
+        max=mx,
+        num_nonzeros=nnz,
+        count=n,
+    )

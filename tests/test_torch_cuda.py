@@ -123,3 +123,40 @@ def test_device_auc_on_card(cuda):
     weights = r.random(labels.size) + 0.5
     got = float(device_auc(scores, labels, weights, device=cuda))
     assert abs(got - auc(scores, labels, weights)) <= 1e-12
+
+
+def test_glm_driver_on_card_matches_cpu(cuda, tmp_path):
+    """The GLM driver on an Avro file (explicit values, hashed features):
+    on the card by default, and with ``--device cpu``, both in float64 at
+    tolerance 0. Each lambda's saved coefficients agree to 1e-9 relative
+    L2 (the kernel and its plain version scan in different orders); every
+    lambda's fit launches the kernel iterations + 1 times; the card's
+    models load on the CPU."""
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+
+    r = np.random.default_rng(5)
+    n, k = 3000, 8
+    ids = r.integers(0, 50, (n, k))
+    w_true = r.normal(size=(k, 50))
+    y = (r.random(n) < 1 / (1 + np.exp(-w_true[np.arange(k), ids].sum(1))))
+    rows = [[(f"c{j}", str(t), float(r.random() + 0.5))
+             for j, t in enumerate(row)] for row in ids.tolist()]
+    write_training_examples(str(tmp_path / "train.avro"), rows,
+                            y.astype(float))
+    argv = ["--train-data", str(tmp_path / "train.avro"), "--hash-dim",
+            "1024", "--reg-weights", "10", "1", "--dtype", "float64",
+            "--tolerance", "0", "--max-iters", "10"]
+    launches = multiply_prefix_sum.launches
+    assert glm_driver.main(argv + ["--output-dir", str(tmp_path / "card")]) == 0
+    assert multiply_prefix_sum.launches - launches == 2 * 11
+    assert glm_driver.main(argv + ["--output-dir", str(tmp_path / "cpu"),
+                                   "--device", "cpu"]) == 0
+    for lam in ("10", "1"):
+        sub = f"all/lambda-{lam}"
+        card = load_game_model(str(tmp_path / "card" / sub), device="cpu")
+        cpu = load_game_model(str(tmp_path / "cpu" / sub), device="cpu")
+        w_card = card["global"].model.coefficients.means
+        w_cpu = cpu["global"].model.coefficients.means
+        assert float((w_card - w_cpu).norm() / w_cpu.norm()) < 1e-9

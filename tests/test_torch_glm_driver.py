@@ -1,0 +1,217 @@
+"""The port's GLM driver (``photon_ml_tpu_torch/cli/glm_driver.py``) against
+the JAX driver on the same fixtures, each run once per module in both
+packages with ``--dtype float64 --tolerance 0 --max-iters 15`` (tolerance 0
+pins the iteration count, so both fit the same number of steps):
+
+* ``libsvm_l2``: LIBSVM input, L2 grid [10, 1, 0.1], L-BFGS;
+* ``avro_elastic_net``: Avro input, elastic net (forces OWL-QN);
+* ``avro_standardized``: Avro input, standardization, coefficient
+  variances and diagnostics.
+
+All three score validation data. Tolerances: relative L2 of 1e-6 on every
+lambda's coefficients and variances (the JAX driver's gradient is a
+scatter-add on the CPU, the port's the column-sorted kernel path's plain
+version: two summation orders, compounded over the iterations); 1e-9 on
+every validation metric and on the Hosmer-Lemeshow statistic. Each deferred
+flag raises, and the default ``--device`` raises without CUDA."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.cli.glm_driver import main as jax_main
+from photon_ml_tpu.io.model_io import load_game_model as jax_load
+from photon_ml_tpu_torch.cli import glm_driver
+from photon_ml_tpu_torch.io.data_reader import (
+    feature_tuples_from_dense, write_training_examples,
+)
+from photon_ml_tpu_torch.io.model_io import load_game_model as port_load
+
+TOL_W = 1e-6
+TOL_METRIC = 1e-9
+GRID = ["10", "1", "0.1"]
+COMMON = ["--dtype", "float64", "--tolerance", "0", "--max-iters", "15",
+          "--reg-weights", *GRID]
+SCENARIOS = {
+    "libsvm_l2": ["--input-format", "libsvm"],
+    "avro_elastic_net": ["--reg-type", "elastic_net",
+                         "--elastic-net-alpha", "0.5"],
+    "avro_standardized": ["--normalization", "standardization",
+                          "--compute-variances", "--diagnostics"],
+}
+
+
+def _write_libsvm(path, X, y):
+    with open(path, "w") as f:
+        for i in range(X.shape[0]):
+            toks = [f"{int(y[i]) * 2 - 1}"]
+            toks += [f"{j + 1}:{X[i, j]:.6f}" for j in np.nonzero(X[i])[0]]
+            f.write(" ".join(toks) + "\n")
+
+
+@pytest.fixture(scope="module")
+def fixtures(tmp_path_factory):
+    root = tmp_path_factory.mktemp("glm")
+    r = np.random.default_rng(0)
+    n, d = 400, 10
+    X = (r.random((n, d)) < 0.4) * r.normal(size=(n, d)) + 0.0
+    X[:, 2] += 3.0 * (X[:, 2] != 0)  # a feature with a large mean
+    w = r.normal(size=d)
+    y = (r.random(n) < 1 / (1 + np.exp(-(X @ w)))).astype(float)
+    _write_libsvm(root / "train.svm", X[:300], y[:300])
+    _write_libsvm(root / "val.svm", X[300:], y[300:])
+    write_training_examples(str(root / "train.avro"),
+                            feature_tuples_from_dense(X[:300]), y[:300])
+    write_training_examples(str(root / "val.avro"),
+                            feature_tuples_from_dense(X[300:]), y[300:])
+    return root
+
+
+@pytest.fixture(scope="module")
+def runs(fixtures):
+    """scenario -> {"jax": out_dir, "port": out_dir}, each run once."""
+    done = {}
+
+    def get(scenario):
+        if scenario not in done:
+            ext = "svm" if scenario == "libsvm_l2" else "avro"
+            argv = ["--train-data", str(fixtures / f"train.{ext}"),
+                    "--validation-data", str(fixtures / f"val.{ext}"),
+                    *COMMON, *SCENARIOS[scenario]]
+            outs = {}
+            for pkg, main, extra in (("jax", jax_main, []),
+                                     ("port", glm_driver.main,
+                                      ["--device", "cpu"])):
+                out = str(fixtures / f"{scenario}-{pkg}")
+                assert main(argv + ["--output-dir", out] + extra) == 0
+                outs[pkg] = out
+            done[scenario] = outs
+        return done[scenario]
+
+    return get
+
+
+def _log(out):
+    with open(os.path.join(out, "photon.log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300)
+
+
+def _coef(model):
+    c = model["global"].model.coefficients
+    return (np.asarray(c.means),
+            None if c.variances is None else np.asarray(c.variances))
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_every_lambda_matches_the_jax_driver(runs, scenario):
+    outs = runs(scenario)
+    logs = {pkg: [e for e in _log(out) if e["event"] == "lambda_trained"]
+            for pkg, out in outs.items()}
+    assert [e["reg_weight"] for e in logs["port"]] == [10.0, 1.0, 0.1]
+    for got, want in zip(logs["port"], logs["jax"]):
+        assert got["iterations"] == want["iterations"] == 15
+        assert got["metrics"].keys() == want["metrics"].keys() == {"auc"}
+        for name, value in want["metrics"].items():
+            assert abs(got["metrics"][name] - value) <= TOL_METRIC
+        assert abs(got["loss"] - want["loss"]) <= TOL_W * abs(want["loss"])
+    for lam in GRID:
+        sub = os.path.join("all", f"lambda-{lam}")
+        gw, gv = _coef(port_load(os.path.join(outs["port"], sub),
+                                 device="cpu"))
+        ww, wv = _coef(jax_load(os.path.join(outs["jax"], sub)))
+        assert _rel(gw, ww) <= TOL_W
+        assert (gv is None) == (wv is None)
+        if wv is not None:
+            assert _rel(gv, wv) <= TOL_W
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_best_lambda_stages_and_output_tree_match(runs, scenario):
+    outs = runs(scenario)
+    logs = {pkg: _log(out) for pkg, out in outs.items()}
+    stages = {pkg: [(e["event"], e.get("stage")) for e in log]
+              for pkg, log in logs.items()}
+    assert stages["port"] == stages["jax"]
+    done = {pkg: log[-1] for pkg, log in logs.items()}
+    assert done["port"]["event"] == "driver_done"
+    assert done["port"]["best_reg_weight"] == done["jax"]["best_reg_weight"]
+    trees = {pkg: sorted(os.path.relpath(os.path.join(d, f), out)
+                         for d, _, files in os.walk(out) for f in files)
+             for pkg, out in outs.items()}
+    assert trees["port"] == trees["jax"]
+    read = [e for e in logs["port"] if e["event"] == "data_read"][0]
+    assert read["decoder"] == ("libsvm" if scenario == "libsvm_l2"
+                               else "native")
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_best_model_loads_in_the_other_package(runs, scenario):
+    outs = runs(scenario)
+    jax_best = os.path.join(outs["jax"], "best")
+    port_best = os.path.join(outs["port"], "best")
+    for got, want in ((_coef(port_load(jax_best, device="cpu")),
+                       _coef(jax_load(jax_best))),
+                      (_coef(jax_load(port_best)),
+                       _coef(port_load(port_best, device="cpu")))):
+        np.testing.assert_array_equal(got[0], want[0])
+        assert (got[1] is None) == (want[1] is None)
+        if want[1] is not None:
+            np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_diagnostics_report_matches(runs):
+    outs = runs("avro_standardized")
+    reports = {}
+    for pkg, out in outs.items():
+        with open(os.path.join(out, "diagnostics.json")) as f:
+            reports[pkg] = json.load(f)
+    got, want = reports["port"], reports["jax"]
+    assert got["reg_weight"] == want["reg_weight"]
+    hl, jhl = got["hosmer_lemeshow"], want["hosmer_lemeshow"]
+    assert hl["dof"] == jhl["dof"]
+    assert abs(hl["statistic"] - jhl["statistic"]) <= TOL_METRIC * max(
+        1.0, jhl["statistic"])
+    scores = {e["feature"]: e["score"] for e in got["feature_importance"]}
+    jscores = {e["feature"]: e["score"] for e in want["feature_importance"]}
+    assert scores.keys() == jscores.keys()
+    assert _rel([scores[k] for k in jscores], list(jscores.values())) <= TOL_W
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--streaming"], "16"),
+    (["--out-of-core"], "16"),
+    (["--chunk-cache-dir", "cache"], "16"),
+    (["--chunk-cache-gb", "1"], "16"),
+    (["--prefetch-depth", "2"], "16"),
+    (["--pad-nnz", "8"], "16"),
+    (["--coordinator-address", "localhost:1234"], "15 and 17"),
+    (["--num-processes", "2"], "15 and 17"),
+    (["--process-id", "0"], "15 and 17"),
+    (["--auto-resume"], "17"),
+    (["--max-rank-failures", "1"], "17"),
+    (["--path-screen", "strong"], "9"),
+    (["--profile-dir", "prof"], "20"),
+    (["--trace-dir", "trace"], "20"),
+])
+def test_deferred_flag_raises(tmp_path, flags, item):
+    argv = ["--train-data", "absent.avro", "--output-dir", str(tmp_path / "o"),
+            "--device", "cpu", *flags]
+    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item} "):
+        glm_driver.main(argv)
+    assert not (tmp_path / "o").exists()
+
+
+def test_default_device_raises_without_cuda(fixtures, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        glm_driver.main(["--train-data", str(fixtures / "train.svm"),
+                         "--input-format", "libsvm",
+                         "--output-dir", str(tmp_path / "o")])

@@ -14,6 +14,10 @@ import torch
 
 from photon_ml_tpu_torch import interop, types
 from photon_ml_tpu_torch.evaluation import device as evaluation
+from photon_ml_tpu_torch.game.data import HostSparse
+from photon_ml_tpu_torch.models import (
+    Coefficients, FixedEffectModel, GameModel, GeneralizedLinearModel,
+)
 from photon_ml_tpu_torch.ops import normalization
 from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.optimize.common import OptimizerConfig
@@ -51,7 +55,10 @@ def test_every_module_is_checked():
                    "ops/kernels", "optimize/owlqn", "optimize/tron",
                    "optimize/linesearch", "parallel/data_parallel",
                    "evaluation/evaluators", "evaluation/device",
-                   "models/glm"):
+                   "models/glm", "game/data", "io/avro", "io/data_reader",
+                   "io/native_reader", "io/paldb", "io/model_io",
+                   "native/__init__", "ops/statistics", "diagnostics",
+                   "cli/glm_driver"):
         assert f"photon_ml_tpu_torch/{module}.py" in names, module
 
 
@@ -104,6 +111,12 @@ ENTRY_POINTS = {
         interop.normalization_from_numpy(np.ones(3), None, device=device),
     "w_from_numpy": lambda device: interop.w_from_numpy(np.ones(3),
                                                         device=device),
+    "batch_from_host_sparse": lambda device: interop.batch_from_host_sparse(
+        HostSparse(np.zeros((2, 1), np.int32), np.ones((2, 1)), 3),
+        np.ones(2), device=device),
+    "game_model_from_numpy": lambda device: interop.game_model_from_numpy(
+        GameModel({"global": FixedEffectModel(GeneralizedLinearModel(
+            Coefficients(np.ones(3))))}), device=device),
     "build_normalization_context": lambda device:
         normalization.build_normalization_context(
             "scale_with_standard_deviation", _Summary(), device=device),
