@@ -55,8 +55,45 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    exactly as the run did; the best validation AUC is above 0.6. The
    kernel's with-values time at this path's nnz is taken beside its bound.
 
+10. the screened regularization path (``optimize.path.PathSolver``) on the
+    main path's rows and columns: elastic net (alpha 0.9), 20 lambdas
+    geometric from ``lambda_max()`` down to 1e-2 of it, walked with
+    ``screen="strong"`` and with ``screen="off"``, first in float32 with the
+    GLM driver's default solver settings (100 iterations, tolerance 1e-7),
+    then in float64 (OWL-QN, at most 200 iterations per solve at tolerance
+    0). Per lambda it prints the candidates, the restricted width, the KKT
+    rounds, both solve times and how far the two walks' solutions differ.
+    Gates, in both dtypes: every lambda certified; at the coordinates
+    each restricted solve froze a fresh full gradient within the KKT slack;
+    the kernel's full and restricted gradients at the last restricted
+    solution equal to the plain ``"csc"`` ones (rel L2 1e-6 in float32,
+    1e-10 in float64). In float64 also: the kernel's float64 with-values
+    variant (the restricted solves') against its plain version at the
+    path's nnz (and its times beside the bound), the screened support
+    identical to the unscreened one and ``w`` within 1e-3 relative L2;
+11. the random-effect bucket solve at ``scripts/bench_game.py``'s chip
+    shape (100,000 entities x 64 rows x 32 local dims, 8 nonzeros per row,
+    float32, drawn on the card; 10 iterations at tolerance 0, l2 0.5) by the
+    batched Newton solver and by the batched L-BFGS: entities per second of
+    each, what ``optimizer="auto"`` resolves to, and the first 1,024
+    entities re-solved on the CPU in float64 by the same solver (each within
+    1e-3 relative L2);
+12. GAME coordinate descent through ``GameEstimator.fit`` at
+    ``scripts/bench_game.py``'s CD shape: n = 2^17 rows, d = 2^16, k = 39
+    implicit ones, user ids uniform over 100,000 and item ids over 10,000,
+    labels from a planted logistic model; a fixed coordinate (l2 1, 10
+    iterations at tolerance 0) and two random ones (l2 1, 5 iterations, 2
+    buckets), 3 sweeps, AUC on 2^15 validation rows. It prints the host
+    time to build the random-effect buckets, each coordinate's seconds per
+    sweep, entities solved and kernel launches per fixed fit. Gates: every
+    fixed fit launches the kernel; the first sweep's fixed ``w`` within
+    1e-3 of a run with ``sparse_grad="csc"``; ``GameTransformer`` scores
+    the validation rows as CD's final validation scores within 1e-5; the
+    model saved by ``save_game_model`` reloads and scores the same.
+
 Each fit's launch count is set to 0 just before it and read just after
-(for phase 9: before and after the driver's run).
+(for phase 9: before and after the driver's run; for phases 10 and 12:
+before and after each of the four walks and the estimator's fit).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -91,9 +128,24 @@ DRIVER_FILES, DRIVER_FILE_ROWS, DRIVER_VAL_FILES = 8, 1 << 14, 2
 DRIVER_FEATURES, DRIVER_HASH_DIM = 39, 1 << 18
 DRIVER_GRID = ("10", "1", "0.1")
 DRIVER_MIN_AUC = 0.6
-# peak device-memory rate and float32 (non-tensor-core) rate, by card
-# (NVIDIA data sheets, SXM parts)
-PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# phase 10, the screened path: elastic net as in BENCH_path.json, 20
+# lambdas from lambda_max down to 1e-2 lambda_max
+PATH_ALPHA, PATH_LAMBDAS, PATH_SPAN = 0.9, 20, 1e-2
+PATH_ITERS = 200  # per float64 solve, tolerance 0 (see phase_path)
+PATH_F32_ITERS, PATH_F32_TOL = 100, 1e-7  # the GLM driver's defaults
+TOL_SCAN_F64 = 1e-12  # the float64 kernel: |err_i| <= this * cumsum|x|
+TOL_GRAD = {torch.float32: 1e-6, torch.float64: 1e-10}  # rel L2 of a
+# gradient through the kernel against the plain "csc" path, same inputs
+# phase 11, the random-effect solve at scripts/bench_game.py's chip shape
+RE_ENTITIES, RE_ROWS, RE_DIM, RE_NNZ, RE_L2 = 100_000, 64, 32, 8, 0.5
+RE_CHECK = 1024  # entities re-solved on the CPU in float64
+# phase 12, GAME coordinate descent at scripts/bench_game.py's CD shape
+GAME_ROWS, GAME_VAL_ROWS, GAME_DIM = 1 << 17, 1 << 15, 1 << 16
+GAME_USERS, GAME_ITEMS, GAME_SWEEPS = 100_000, 10_000, 3
+TOL_SCORE = 1e-5  # max |diff| of two scorings of the validation rows
+# peak device-memory rate, float32 and float64 (non-tensor-core) rates, by
+# card (NVIDIA data sheets, SXM parts)
+PEAKS = {"H200": (4.8e12, 67e12, 34e12), "H100": (3.35e12, 67e12, 34e12)}
 
 
 def card_peaks(name: str):
@@ -128,16 +180,18 @@ def tile_reference(x64: torch.Tensor, tile: int):
     return ref, scale
 
 
-def check_scan(nnz: int, with_values: bool, gen, dev):
+def check_scan(nnz: int, with_values: bool, gen, dev, dtype=torch.float32):
     """The kernel and the plain version against the float64 reference, the
-    kernel's determinism and its totals; returns the kernel's max abs
-    error."""
+    kernel's determinism and its totals, for inputs of ``dtype``; returns
+    the kernel's max abs error."""
     from photon_ml_tpu_torch.ops.kernels import (
         TILE, multiply_prefix_sum, multiply_prefix_sum_plain,
     )
 
-    d = torch.randn(nnz, generator=gen, device=dev)
-    values = torch.randn(nnz, generator=gen, device=dev) if with_values else None
+    tol = TOL_SCAN if dtype == torch.float32 else TOL_SCAN_F64
+    d = torch.randn(nnz, generator=gen, device=dev, dtype=dtype)
+    values = (torch.randn(nnz, generator=gen, device=dev, dtype=dtype)
+              if with_values else None)
     x64 = d.double() if values is None else values.double() * d.double()
     ref, scale = tile_reference(x64, TILE)
     local, totals, tile = multiply_prefix_sum(values, d)
@@ -155,31 +209,33 @@ def check_scan(nnz: int, with_values: bool, gen, dev):
     errs = {}
     for name, out in (("kernel", local), ("plain", plain)):
         err = (out.double() - ref).abs()
-        bad = int((err > TOL_SCAN * scale).sum())
+        bad = int((err > tol * scale).sum())
         if bad or not torch.isfinite(out).all():
             raise RuntimeError(
-                f"{name} scan off at nnz={nnz} values={with_values}: {bad} "
-                f"elements beyond {TOL_SCAN} * cumsum|x|, max err "
+                f"{name} scan off at nnz={nnz} values={with_values} "
+                f"{dtype}: {bad} elements beyond {tol} * cumsum|x|, max err "
                 f"{float(err.max()):.3e}")
         errs[name] = float(err.max())
-    print(f"scan nnz={nnz} values={with_values}: max abs err kernel "
+    print(f"scan nnz={nnz} values={with_values} {dtype}: max abs err kernel "
           f"{errs['kernel']:.3e} plain {errs['plain']:.3e} "
-          f"(tol {TOL_SCAN} * cumsum|x| per tile); two runs bit-identical")
+          f"(tol {tol} * cumsum|x| per tile); two runs bit-identical")
     return errs["kernel"]
 
 
-def time_scan(nnz: int, gen, dev, peaks, with_values: bool = False):
-    """Kernel, plain and torch.cumsum times at a path's shape (float32;
-    implicit ones unless ``with_values``), and the bound for the same
-    work."""
+def time_scan(nnz: int, gen, dev, peaks, with_values: bool = False,
+              dtype=torch.float32):
+    """Kernel, plain and torch.cumsum times at a path's shape (inputs of
+    ``dtype``; implicit ones unless ``with_values``), and the bound for the
+    same work."""
     from photon_ml_tpu_torch.ops.kernels import (
         TILE, multiply_prefix_sum, multiply_prefix_sum_plain,
     )
 
-    d = torch.randn(nnz, generator=gen, device=dev)
-    values = torch.randn(nnz, generator=gen, device=dev) if with_values else None
+    d = torch.randn(nnz, generator=gen, device=dev, dtype=dtype)
+    values = (torch.randn(nnz, generator=gen, device=dev, dtype=dtype)
+              if with_values else None)
     n_tiles = max(-(-nnz // TILE), 1)
-    padded = torch.zeros(n_tiles * TILE, device=dev)
+    padded = torch.zeros(n_tiles * TILE, device=dev, dtype=dtype)
     padded[:nnz] = d if values is None else values * d
     view = padded.view(n_tiles, TILE)
     reps = 20
@@ -188,10 +244,13 @@ def time_scan(nnz: int, gen, dev, peaks, with_values: bool = False):
                        reps)
     library_ms = cuda_ms(
         lambda: torch.cumsum(view, dim=1, dtype=torch.float64), reps)
-    # read the float32 d_sorted (and values) once, write the float64 local
-    # and totals once; one add (and one multiply) per element
-    nbytes = (8 if with_values else 4) * nnz + 8 * (n_tiles * TILE + n_tiles)
-    bw, flops = peaks
+    # read d_sorted (and values) once, write the float64 local and totals
+    # once; one add (and one multiply) per element
+    itemsize = d.element_size()
+    nbytes = ((2 if with_values else 1) * itemsize * nnz
+              + 8 * (n_tiles * TILE + n_tiles))
+    bw, f32_rate, f64_rate = peaks
+    flops = f32_rate if dtype == torch.float32 else f64_rate
     ops = (2 if with_values else 1) * nnz
     bytes_ms, ops_ms = nbytes / bw * 1e3, ops / flops * 1e3
     return {
@@ -514,6 +573,9 @@ class _RecordingEvaluator:
     def better(self, a, b):
         return self.inner.better(a, b)
 
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
 
 def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
                  n_files=DRIVER_FILES, n_val_files=DRIVER_VAL_FILES):
@@ -649,6 +711,469 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
     return launches, dict(timing, nnz=nnz)
 
 
+def path_walks(obj, reg, batch, csc, config, grid=None):
+    """Walk ``grid`` (by default 20 lambdas from ``lambda_max()`` down to
+    1e-2 of it) with ``screen="strong"`` and with ``screen="off"``; each
+    walk's kernel count is set to 0 just before it and read just after.
+    Returns (grid, {rule: (solver, [(result, stats)], seconds,
+    launches)})."""
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.optimize import PathConfig
+    from photon_ml_tpu_torch.optimize.path import PathSolver
+
+    walks = {}
+    for rule in ("strong", "off"):
+        solver = PathSolver(obj, reg, batch=batch, config=config,
+                            path_config=PathConfig(screen=rule),
+                            precomputed_csc=csc)
+        if grid is None:
+            lmax = solver.lambda_max()
+            grid = np.geomspace(lmax, PATH_SPAN * lmax, PATH_LAMBDAS)
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t0 = time.perf_counter()
+        out = [solver.solve(float(lam)) for lam in grid]
+        torch.cuda.synchronize()
+        walks[rule] = (solver, out, time.perf_counter() - t0,
+                       multiply_prefix_sum.launches)
+        if walks[rule][3] < 1:
+            raise RuntimeError(f"the path walk screen={rule} did not launch "
+                               "the kernel")
+    return grid, walks
+
+
+def print_walks(label, grid, walks, smi):
+    """Per lambda: candidates, restricted width, KKT rounds, iterations and
+    solve seconds of both walks, and how far their solutions differ. Gates:
+    every lambda certified, finite ``w`` of full width."""
+    (_, scr, t_s, n_s), (_, off, t_o, n_o) = walks["strong"], walks["off"]
+    print(f"path {label} (elastic net alpha {PATH_ALPHA}, {len(grid)} "
+          f"lambdas from lambda_max {grid[0]:.4f} down to {grid[-1]:.4f}, "
+          f"n={N_ROWS}, d={DIM}): screen=strong {t_s:.3f} s, {n_s} kernel "
+          f"launches; screen=off {t_o:.3f} s, {n_o} kernel launches, on "
+          f"{smi}")
+    for lam, (rs, ss), (ro, so) in zip(grid, scr, off):
+        diff = int(((rs.w != 0) != (ro.w != 0)).sum())
+        print(f"  lambda {lam:.5f}: candidates {ss.candidate_size}, "
+              f"screened_dim {ss.screened_dim}, kkt_rounds {ss.kkt_rounds}, "
+              f"violations {ss.kkt_violations}, iterations "
+              f"{ss.solver_iterations} vs {so.solver_iterations}, solve "
+              f"{ss.solve_seconds:.4f} s vs {so.solve_seconds:.4f} s, "
+              f"nonzeros {int((rs.w != 0).sum())} vs {int((ro.w != 0).sum())}"
+              f", support differs at {diff}, rel L2 {rel_l2(rs.w, ro.w):.3e}")
+        if not (ss.certified and so.certified):
+            raise RuntimeError(f"path {label} lambda {lam}: not certified")
+        if not (torch.isfinite(rs.w).all() and torch.isfinite(ro.w).all()
+                and rs.w.shape == ro.w.shape == (DIM,)):
+            raise RuntimeError(f"path {label} lambda {lam}: w not finite or "
+                               "of the wrong shape")
+
+
+def check_path_kkt(label, reg, grid, walks):
+    """The certification of every screened-walk lambda whose solve was
+    restricted: at the coordinates the strong rule froze at zero (those
+    whose previous data gradient fell below the threshold), a fresh full
+    data gradient meets the KKT condition within the slack
+    (``kkt_residuals``). The largest residual at any zero coordinate is
+    printed beside it: a member left at zero by a float32 solve that
+    stopped at its tolerance may exceed the slack without any screening
+    fault."""
+    from photon_ml_tpu_torch.ops.objective import kkt_residuals
+    from photon_ml_tpu_torch.ops.regularization import (
+        kkt_slack, screening_threshold,
+    )
+    from photon_ml_tpu_torch.optimize import PathConfig
+
+    solver, scr = walks["strong"][:2]
+    pc = PathConfig(screen="strong")
+    w0, g0, lam1_max = solver._probe()
+    frozen_ratio, zero_ratio = [], []
+    for i, (lam, (res, st)) in enumerate(zip(grid, scr)):
+        l1 = reg.l1_weight(float(lam))
+        # the screening source of lambda i: the solved lambda above it
+        if i == 0:
+            w_prev, g_prev, l1_prev = w0, g0, max(lam1_max, l1)
+        else:
+            prev = solver._states[i - 1]
+            w_prev, g_prev, l1_prev = prev.w, prev.g, prev.lam_l1
+        thr = screening_threshold(pc.screen, l1, max(l1_prev, l1),
+                                  pc.screen_slack)
+        frozen = (torch.abs(g_prev) < thr) & (w_prev == 0) & (res.w == 0)
+        r = kkt_residuals(res.w, solver._full_grad(res.w), l1)
+        slack = kkt_slack(l1, pc.kkt_tol)
+        at_zero = res.w == 0
+        zero_ratio.append(float(r[at_zero].max()) / slack
+                          if bool(at_zero.any()) else 0.0)
+        if st.screened_dim < DIM:
+            top = float(r[frozen].max()) if bool(frozen.any()) else 0.0
+            frozen_ratio.append(f"{top / slack:.3g} ({int(frozen.sum())})")
+            if not top <= slack:
+                raise RuntimeError(
+                    f"path {label} lambda {lam}: a frozen coordinate breaks "
+                    f"the KKT condition by {top:.3e} > slack {slack:.3e}")
+    print(f"  {label} KKT residual over the slack at the frozen coordinates "
+          f"(their count), per restricted lambda, gated <= 1: "
+          f"{', '.join(frozen_ratio)}; at any zero coordinate, per lambda: "
+          f"{', '.join(f'{x:.3g}' for x in zero_ratio)}")
+
+
+def check_path_grads(label, obj, reg, batch, csc, grid, walks):
+    """The path's two kernel calls against the plain ``"csc"`` path on the
+    same inputs, at the screened walk's last restricted solution: the full
+    data gradient (implicit ones; the certification passes) and the
+    restricted batch's gradient (explicit values; the restricted
+    solves)."""
+    from photon_ml_tpu_torch.optimize import PathConfig
+    from photon_ml_tpu_torch.optimize.path import PathSolver, pad_to_bucket
+    from photon_ml_tpu_torch.parallel.data_parallel import (
+        build_csc, make_csc_path,
+    )
+
+    solver, scr = walks["strong"][:2]
+    tol = TOL_GRAD[batch.labels.dtype]
+    i = max(j for j, (_, st) in enumerate(scr) if st.screened_dim < DIM)
+    w = scr[i][0].w
+    plain = PathSolver(obj, reg, batch=batch, sparse_grad="csc",
+                       precomputed_csc=csc)
+    rel_full = rel_l2(solver._full_grad(w), plain._full_grad(w))
+    member = w != 0
+    bucket = pad_to_bucket(int(member.sum()), PathConfig().min_bucket)
+    cols, lut = solver._selection(member)
+    rbatch = solver._restrict_batch(member, cols, lut, bucket)
+    rcsc = build_csc(rbatch)
+    w_r = torch.zeros(bucket, dtype=w.dtype, device=w.device)
+    w_r[: cols.shape[0]] = w[cols]
+    grads = [make_csc_path(solver._robj, use_kernel=k)[1](
+        w_r, rbatch, rcsc, 0.0)[1] for k in (True, False)]
+    rel_r = rel_l2(*grads)
+    print(f"  {label} gradients at lambda {grid[i]:.5f}, kernel vs plain "
+          f"csc: full (implicit ones) rel L2 {rel_full:.3e}; restricted to "
+          f"{bucket} columns (explicit values) rel L2 {rel_r:.3e} (tol "
+          f"{tol})")
+    if not (rel_full <= tol and rel_r <= tol):
+        raise RuntimeError(f"path {label}: a gradient through the kernel "
+                           f"differs from the plain one: {rel_full:.3e}, "
+                           f"{rel_r:.3e}")
+
+
+def phase_path(obj, batch, csc, smi, gen, dev, peaks):
+    """Phase 10: the screened regularization path at the main path's width,
+    against the unscreened walk of the same grid, in float32 and in
+    float64. Returns (launches per walk, the float64 with-values kernel's
+    timing and max error)."""
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+    from photon_ml_tpu_torch.types import LabeledBatch, SparseFeatures
+
+    reg = RegularizationContext("elastic_net", alpha=PATH_ALPHA)
+    launches = {}
+    # float32, the driver's dtype and its default solver settings: every
+    # lambda certified, the restricted solves within the KKT slack, the
+    # kernel's gradients equal to the plain ones. The two walks' supports
+    # are printed, not gated: in float32 the summed loss (about 1.45e6 at
+    # n = 2^21) resolves a coefficient only to about sqrt(2 eps32 F / H) ~
+    # 5e-2 (H ~ 78, the curvature of one feature's ~312 rows), so two
+    # solves that stop at different points of that floor cannot be held to
+    # one support.
+    grid, walks = path_walks(obj, reg, batch, csc, OptimizerConfig(
+        max_iters=PATH_F32_ITERS, tolerance=PATH_F32_TOL))
+    launches["path_f32_strong"] = walks["strong"][3]
+    launches["path_f32_off"] = walks["off"][3]
+    print_walks("float32", grid, walks, smi)
+    check_path_kkt("float32", reg, grid, walks)
+    check_path_grads("float32", obj, reg, batch, csc, grid, walks)
+
+    # float64, where that floor is ~1e-6: the screened support identical to
+    # the unscreened one and w within 1e-3. Tolerance 0 runs each solve
+    # until OWL-QN's line search stalls at that floor (or PATH_ITERS): a
+    # coordinate whose KKT margin is tiny is zero in one walk and tiny in
+    # the other unless both solves get that close. The restricted solves
+    # run the kernel's float64 with-values variant: it is held to the plain
+    # version first, at the path's nnz.
+    nnz = N_ROWS * K
+    err64 = check_scan(nnz, True, gen, dev, torch.float64)
+    timing64 = time_scan(nnz, gen, dev, peaks, with_values=True,
+                         dtype=torch.float64)
+    print(f"multiply_prefix_sum at the path's nnz={nnz} (explicit values, "
+          f"f64, the restricted solves' variant): kernel "
+          f"{timing64['kernel_ms']:.4f} ms, plain {timing64['plain_ms']:.4f} "
+          f"ms, torch.cumsum {timing64['library_ms']:.4f} ms, bound "
+          f"{timing64['bound_ms']:.4f} ms ({timing64['bytes'] / 1e6:.1f} MB "
+          f"by {timing64['bound_by']}) on {smi}")
+    batch64 = LabeledBatch(
+        SparseFeatures(batch.features.indices, None, batch.features.dim),
+        batch.labels.double(), batch.offsets.double(),
+        batch.weights.double())
+    grid, walks = path_walks(obj, reg, batch64, csc, OptimizerConfig(
+        max_iters=PATH_ITERS, tolerance=0.0))
+    launches["path_f64_strong"] = walks["strong"][3]
+    launches["path_f64_off"] = walks["off"][3]
+    print_walks("float64", grid, walks, smi)
+    check_path_kkt("float64", reg, grid, walks)
+    check_path_grads("float64", obj, reg, batch64, csc, grid, walks)
+    for lam, (rs, _), (ro, _) in zip(grid, walks["strong"][1],
+                                     walks["off"][1]):
+        if not torch.equal(rs.w != 0, ro.w != 0):
+            diff = (rs.w != 0) != (ro.w != 0)
+            largest = float(torch.maximum(rs.w.abs(), ro.w.abs())[diff].max())
+            raise RuntimeError(
+                f"path float64 lambda {lam}: the screened support differs "
+                f"from the unscreened one at {int(diff.sum())} coordinates "
+                f"(largest |w| there {largest:.3e})")
+        rel = rel_l2(rs.w, ro.w)
+        if not rel <= TOL_FIT:
+            raise RuntimeError(f"path float64 lambda {lam}: rel L2 "
+                               f"{rel:.3e} > {TOL_FIT}")
+    return launches, dict(timing64, nnz=nnz, max_abs_err=err64)
+
+
+def re_bucket(E, N, D, kk, gen, dev, dtype=torch.float32):
+    """One random-effect bucket drawn on ``dev``: E entities x N rows of kk
+    nonzeros in a D-dim local space, labels Bernoulli(0.5)."""
+    from photon_ml_tpu_torch.game.data import REBucket
+
+    idx = torch.randint(0, D, (E, N, kk), generator=gen, device=dev,
+                        dtype=torch.int32)
+    val = torch.randn((E, N, kk), generator=gen, device=dev, dtype=dtype)
+    lab = (torch.rand((E, N), generator=gen, device=dev) < 0.5).to(dtype)
+    return REBucket(
+        entity_ids=np.arange(E), indices=idx, values=val, labels=lab,
+        weights=torch.ones((E, N), dtype=dtype, device=dev),
+        sample_idx=torch.arange(E * N, dtype=torch.int32,
+                                device=dev).view(E, N),
+        projection=torch.arange(D, dtype=torch.int32,
+                                device=dev).expand(E, D),
+        local_maps=[])
+
+
+def phase_re_solve(dev, gen, smi):
+    """Phase 11: the random-effect bucket solve at scripts/bench_game.py's
+    chip shape with both solvers; the first RE_CHECK entities re-solved on
+    the CPU in float64 by the same solver."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game.data import RandomEffectTrainData
+    from photon_ml_tpu_torch.game.random_effect import (
+        resolve_re_optimizer, train_random_effect,
+    )
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+
+    E, N, D, kk = RE_ENTITIES, RE_ROWS, RE_DIM, RE_NNZ
+    bucket = re_bucket(E, N, D, kk, gen, dev)
+    data = RandomEffectTrainData("random", [bucket], E * N, {})
+    offsets = torch.zeros(E * N, device=dev)
+    cfg = OptimizerConfig(max_iters=10, tolerance=0.0)
+    rows = slice(0, RE_CHECK)
+    cpu_bucket = dataclasses.replace(
+        bucket, entity_ids=np.arange(RE_CHECK),
+        **{f: getattr(bucket, f)[rows].cpu().double()
+           if getattr(bucket, f).is_floating_point()
+           else getattr(bucket, f)[rows].cpu()
+           for f in ("indices", "values", "labels", "weights",
+                     "sample_idx", "projection")})
+    cpu_data = RandomEffectTrainData("random", [cpu_bucket], E * N, {})
+    rates = {}
+    for opt in ("newton", "lbfgs"):
+        train_random_effect(data, offsets, l2=RE_L2, optimizer=opt,
+                            config=cfg, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = train_random_effect(data, offsets, l2=RE_L2, optimizer=opt,
+                                  config=cfg, device=dev)
+        sec = time.perf_counter() - t0
+        rates[opt] = E / sec
+        ref = train_random_effect(cpu_data, np.zeros(E * N), l2=RE_L2,
+                                  optimizer=opt, config=cfg,
+                                  dtype=torch.float64, device="cpu")
+        W, Wc = fit.coefficients[0][rows].astype(np.float64), \
+            ref.coefficients[0]
+        rel = (np.linalg.norm(W - Wc, axis=1)
+               / np.maximum(np.linalg.norm(Wc, axis=1), 1e-30))
+        print(f"re solve {opt} (E={E}, rows {N}, local dim {D}, {kk} "
+              f"nonzeros per row, f32, 10 iterations, tolerance 0, l2 "
+              f"{RE_L2}): {sec:.4f} s, {rates[opt]:.1f} entities/s, mean "
+              f"iterations {fit.mean_iterations:.2f}; first {RE_CHECK} "
+              f"entities vs the CPU float64 solve: max rel L2 "
+              f"{rel.max():.3e} (tol {TOL_FIT}) on {smi}")
+        if not (np.isfinite(fit.coefficients[0]).all()
+                and rel.max() <= TOL_FIT):
+            raise RuntimeError(f"re solve {opt}: card vs CPU rel L2 "
+                               f"{rel.max():.3e}")
+    from photon_ml_tpu_torch.game import random_effect as re_mod
+
+    print(f"re solve: newton/lbfgs = {rates['newton'] / rates['lbfgs']:.2f}; "
+          f"optimizer='auto' resolves to {resolve_re_optimizer('auto')!r}; "
+          f"card memory {torch.cuda.get_device_properties(dev).total_memory} "
+          f"B, block budget {re_mod._block_budget(dev)} B")
+    return rates
+
+
+def make_game_data(n, n_val, gen_seed):
+    """The CD shape of scripts/bench_game.py: Criteo-shaped implicit-ones
+    rows (d = GAME_DIM, k = K), user ids uniform over GAME_USERS and item
+    ids over GAME_ITEMS, labels from a planted logistic model."""
+    from photon_ml_tpu_torch.game.data import HostSparse
+    from photon_ml_tpu_torch.game.descent import make_game_dataset
+
+    rng = np.random.default_rng(gen_seed)
+    total = n + n_val
+    idx = rng.integers(0, GAME_DIM, (total, K)).astype(np.int32)
+    users = rng.integers(0, GAME_USERS, total)
+    items = rng.integers(0, GAME_ITEMS, total)
+    w_true = rng.normal(0.0, 0.5, GAME_DIM)
+    logits = w_true[idx].sum(axis=1)
+    y = (rng.random(total) < 1.0 / (1.0 + np.exp(-logits))).astype(float)
+
+    def part(rows):
+        return make_game_dataset(
+            {"global": HostSparse(idx[rows], None, GAME_DIM)}, y[rows],
+            entity_ids={"user": users[rows], "item": items[rows]})
+
+    return part(slice(0, n)), part(slice(n, total))
+
+
+def game_configs(fixed_grad="auto"):
+    from photon_ml_tpu_torch.game.descent import CoordinateConfig
+
+    return [
+        CoordinateConfig("fixed", reg_type="l2", reg_weight=1.0,
+                         max_iters=10, tolerance=0.0, sparse_grad=fixed_grad),
+        CoordinateConfig("per_user", coordinate_type="random",
+                         entity_column="user", max_iters=5, num_buckets=2,
+                         reg_type="l2", reg_weight=1.0),
+        CoordinateConfig("per_item", coordinate_type="random",
+                         entity_column="item", max_iters=5, num_buckets=2,
+                         reg_type="l2", reg_weight=1.0),
+    ]
+
+
+def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
+    """Phase 12: GAME coordinate descent through GameEstimator.fit at
+    scripts/bench_game.py's CD shape, with validation AUC; the fixed
+    coordinate's first fit against the plain "csc" path, GameTransformer
+    against CD's own validation scores, and the saved model reloaded."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.estimators import GameEstimator, GameTransformer
+    from photon_ml_tpu_torch.game import descent
+    from photon_ml_tpu_torch.io.index_map import IndexMap
+    from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    t0 = time.perf_counter()
+    train, val = make_game_data(n, n_val, SEED)
+    t_data = time.perf_counter() - t0
+    configs = game_configs()
+    cache = {}
+    t0 = time.perf_counter()
+    descent.CoordinateDescent(configs, device=dev, dataset_cache=cache) \
+        ._build_random_states(train, val, {}, {})
+    t_re_data = time.perf_counter() - t0
+    buckets = {name: [(b.num_entities, b.indices.shape[1], b.local_dim)
+                      for b in entry[1].buckets]
+               for key, entry in cache.items() if key[0] == "re_data"
+               for name in [key[2]]}
+    print(f"game data: n={n} (+{n_val} validation), d={GAME_DIM}, k={K}, "
+          f"{GAME_USERS} user ids, {GAME_ITEMS} item ids; drawn in "
+          f"{t_data:.2f} s, random-effect buckets and score views built in "
+          f"{t_re_data:.2f} s on the host; buckets (entities, rows, local "
+          f"dim): {buckets}")
+
+    fixed_fits, scored = [], []
+    real_fit = descent._FixedState.fit
+    real_get = descent.get_evaluator
+
+    def counted_fit(self, offsets_full, opt_config=None):
+        torch.cuda.synchronize()
+        before = multiply_prefix_sum.launches
+        t_fit = time.perf_counter()
+        res = real_fit(self, offsets_full, opt_config)
+        float(res.value)
+        fixed_fits.append((time.perf_counter() - t_fit,
+                           multiply_prefix_sum.launches - before,
+                           res.iterations))
+        return res
+
+    snaps = {}
+    descent._FixedState.fit = counted_fit
+    descent.get_evaluator = \
+        lambda name: _RecordingEvaluator(real_get(name), scored)
+    try:
+        est = GameEstimator(task="logistic", n_iterations=GAME_SWEEPS,
+                            evaluators=["auc"], device=dev)
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t0 = time.perf_counter()
+        result = est.fit(
+            train, val, [configs], dataset_cache=cache,
+            checkpoint_callback=lambda gi, it, model: snaps.setdefault(
+                it, model["fixed"].model.coefficients.means.clone()))[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = multiply_prefix_sum.launches
+    finally:
+        descent._FixedState.fit = real_fit
+        descent.get_evaluator = real_get
+    print(f"game fit: {GAME_SWEEPS} sweeps in {seconds:.3f} s, {launches} "
+          f"kernel launches, final validation auc "
+          f"{result.evaluation.primary_value:.6f}, on {smi}")
+    for rec in result.history:
+        extra = ""
+        if "entities_solved" in rec:
+            extra = (f", {rec['entities_solved']} entities solved, mean "
+                     f"iterations {rec['mean_optimizer_iterations']:.2f}, "
+                     f"converged {rec['converged_fraction']:.3f}")
+        print(f"  sweep {rec['iteration']} {rec['coordinate']}: "
+              f"{rec['seconds']:.4f} s (solve {rec['solve_seconds']:.4f}, "
+              f"eval {rec['eval_seconds']:.4f}){extra}, auc "
+              f"{rec['auc']:.6f}")
+    for i, (sec, n_launch, iters) in enumerate(fixed_fits):
+        print(f"  fixed fit {i}: {iters} iterations, {n_launch} kernel "
+              f"launches, {sec:.4f} s")
+        if n_launch < 1:
+            raise RuntimeError("a fixed-coordinate fit did not launch the "
+                               "kernel")
+
+    # the first sweep's fixed fit starts from zero offsets in both runs
+    plain = GameEstimator(task="logistic", n_iterations=1,
+                          device=dev).fit(train, None,
+                                          [game_configs("csc")])[0]
+    rel = rel_l2(snaps[0], plain.model["fixed"].model.coefficients.means)
+    print(f"  fixed coordinate after sweep 0: |w_kernel - w_csc| / |w_csc| "
+          f"= {rel:.3e} (tol {TOL_FIT})")
+    if not rel <= TOL_FIT:
+        raise RuntimeError(f"game fixed coordinate: kernel fit differs from "
+                           f"the plain fit: {rel:.3e}")
+
+    transformer = GameTransformer(result.model, device=dev)
+    scores = transformer.transform(val).cpu().numpy()
+    cd_scores = scored[-1]
+    diff = float(np.abs(scores - cd_scores).max())
+    print(f"  GameTransformer vs CD's final validation scores: max |diff| "
+          f"{diff:.3e} (tol {TOL_SCORE})")
+    if not (np.isfinite(scores).all() and scores.shape == (n_val,)
+            and diff <= TOL_SCORE):
+        raise RuntimeError(f"GameTransformer scores differ: {diff:.3e}")
+    imap = IndexMap({f"f{i}": i for i in range(GAME_DIM)})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
+        out = os.path.join(root, "model")
+        t0 = time.perf_counter()
+        save_game_model(result.model, out, {"global": imap})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_game_model(out, device=dev)
+        t_load = time.perf_counter() - t0
+    again = GameTransformer(loaded, device=dev).transform(val).cpu().numpy()
+    diff = float(np.abs(again - scores).max())
+    print(f"  save_game_model {t_save:.2f} s, load_game_model {t_load:.2f} "
+          f"s; the reloaded model's validation scores: max |diff| "
+          f"{diff:.3e} (tol {TOL_SCORE})")
+    if not diff <= TOL_SCORE:
+        raise RuntimeError(f"the reloaded model scores differently: {diff}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -760,6 +1285,12 @@ def main() -> int:
     phase_auc(res.w, batch, smi)
     launches_by_path["glm_driver"], driver_timing = phase_driver(
         dev, smi, peaks, gen)
+    path_launches, path_timing = phase_path(obj, batch, csc, smi, gen, dev,
+                                            peaks)
+    launches_by_path.update(path_launches)
+    max_err = max(max_err, path_timing["max_abs_err"])
+    phase_re_solve(dev, gen, smi)
+    launches_by_path["game_cd"] = phase_game(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -782,6 +1313,10 @@ def main() -> int:
             key: driver_timing[key] for key in (
                 "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
+        "path_float64_with_values": {
+            key: path_timing[key] for key in (
+                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

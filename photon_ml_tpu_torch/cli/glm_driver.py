@@ -15,11 +15,15 @@ gradient of every lambda's fit goes through ``ops.kernels``'s
 ``multiply_prefix_sum`` (the hand-written CUDA kernel on the card, its
 plain version on the CPU).
 
+``--path-screen strong|safe`` walks the grid through
+``optimize.path.PathSolver``: screened restricted solves, each certified by
+a full-gradient KKT pass, and each lambda's ``PathLambdaStats`` in its
+``lambda_trained`` event under ``path``.
+
 Flags of the JAX driver that select parts of the port not written yet
-(streaming, multi-process, recovery, path screening, profiling) are
-accepted by the parser and raise, naming the ROADMAP item that ports them;
-the settings that only refine those parts (``--chunk-rows``,
-``--path-kkt-tol`` and the like) are not accepted.
+(streaming, multi-process, recovery, profiling) are accepted by the parser
+and raise, naming the ROADMAP item that ports them; the settings that only
+refine those parts (``--chunk-rows`` and the like) are not accepted.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.glm_driver \\
@@ -66,8 +70,9 @@ from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.ops.statistics import summarize_features
 from photon_ml_tpu_torch.optimize import (
-    OptimizerConfig, parse_tolerance_schedule,
+    OptimizerConfig, PathConfig, parse_tolerance_schedule,
 )
+from photon_ml_tpu_torch.optimize.path import PathSolver
 from photon_ml_tpu_torch.parallel.data_parallel import (
     build_csc, fit_distributed, resolve_sparse_grad,
 )
@@ -89,7 +94,6 @@ _DEFERRED = {
     "process_id": "15 and 17 (multi-device and multi-host)",
     "auto_resume": "17 (recovery)",
     "max_rank_failures": "17 (recovery)",
-    "path_screen": "9 (the path solver)",
     "profile_dir": "20 (observability)",
     "trace_dir": "20 (observability)",
 }
@@ -153,9 +157,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for the data and the fits (default "
                         "cuda, which raises without a GPU)")
-    # accepted for parity with the JAX driver; each raises (_DEFERRED)
     p.add_argument("--path-screen", default="off",
-                   choices=["off", "strong", "safe"])
+                   choices=["off", "strong", "safe"],
+                   help="pathwise training over the lambda grid with "
+                        "KKT-certified feature screening (optimize/path.py); "
+                        "the grid is walked in the given order, so list it "
+                        "decreasing")
+    p.add_argument("--path-kkt-tol", type=float, default=1e-6,
+                   help="relative slack of the screened-coordinate KKT "
+                        "violation test")
+    p.add_argument("--path-max-kkt-rounds", type=int, default=5,
+                   help="screen -> solve -> certify rounds per lambda "
+                        "before a full-width fallback solve")
+    p.add_argument("--path-min-bucket", type=int, default=64,
+                   help="floor of the power-of-two restricted width")
+    # accepted for parity with the JAX driver; each raises (_DEFERRED)
     p.add_argument("--auto-resume", action="store_true")
     p.add_argument("--max-rank-failures", type=int, default=0)
     p.add_argument("--streaming", action="store_true")
@@ -294,6 +310,15 @@ def _run(args) -> int:
                    reason=f"reg_type={args.reg_type} needs OWL-QN")
         optimizer = "owlqn"
 
+    if args.path_screen != "off" \
+            and NormalizationType(args.normalization) != NormalizationType.NONE:
+        raise SystemExit(
+            "--path-screen does not compose with --normalization: the "
+            "virtual shift couples every column through the margin "
+            "adjustment, so a frozen column would still move the margins "
+            "(optimize/path.py). Normalize the data on disk or drop one "
+            "of the flags")
+
     # -- stage: read + index -------------------------------------------------
     with Timed(logger, "read_train_data"):
         index_map = None
@@ -376,6 +401,16 @@ def _run(args) -> int:
     if sparse_grad.startswith("csc"):
         grid_csc = build_csc(batch, with_cols=sparse_grad == "csc_segment")
 
+    path_solver = None
+    if args.path_screen != "off":
+        pcfg = PathConfig(screen=args.path_screen,
+                          kkt_tol=args.path_kkt_tol,
+                          max_kkt_rounds=args.path_max_kkt_rounds,
+                          min_bucket=args.path_min_bucket)
+        path_solver = PathSolver(
+            objective, reg, batch=batch, optimizer=optimizer,
+            config=opt_config, path_config=pcfg, precomputed_csc=grid_csc)
+
     results = []
     w = torch.zeros((dim,), dtype=dtype, device=dev)
     with Timed(logger, "training"):
@@ -385,17 +420,25 @@ def _run(args) -> int:
                 run_config = dataclasses.replace(
                     opt_config,
                     tolerance=args.solver_tol_schedule.at(li, args.tolerance))
-            res = fit_distributed(
-                objective, batch, w,
-                l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
-                optimizer=optimizer, config=run_config,
-                precomputed_csc=grid_csc,
-            )
+            path_stats = None
+            if path_solver is not None:
+                res, path_stats = path_solver.solve(
+                    lam, tolerance=run_config.tolerance)
+            else:
+                res = fit_distributed(
+                    objective, batch, w,
+                    l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
+                    optimizer=optimizer, config=run_config,
+                    precomputed_csc=grid_csc,
+                )
             w = res.w  # warm start the next lambda
             diag = {
                 "reg_weight": lam,
-                "solver_tolerance": float(run_config.tolerance),
-                "screened_dim": int(dim),
+                "solver_tolerance": float(
+                    run_config.tolerance if res.solver_tolerance is None
+                    else res.solver_tolerance),
+                "screened_dim": int(
+                    dim if res.screened_dim is None else res.screened_dim),
                 "loss": float(res.value),
                 "grad_norm": float(res.grad_norm),
                 "iterations": int(res.iterations),
@@ -405,6 +448,8 @@ def _run(args) -> int:
                     if np.isfinite(v)
                 ],
             }
+            if path_stats is not None:
+                diag["path"] = path_stats.as_dict()
             metrics = {}
             if validation_batch is not None and evaluators:
                 scores = objective.margins(res.w, validation_batch).cpu().numpy()

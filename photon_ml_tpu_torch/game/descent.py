@@ -1,0 +1,877 @@
+"""GAME coordinate descent: the training algorithm (counterpart of
+``photon_ml_tpu/game/descent.py``: its in-memory, single-device path).
+
+An outer loop over iterations x coordinates, sequential by design; per
+coordinate, the offsets fed to training are ``base + total_scores - this
+coordinate's scores`` (the residual trick), the coordinate retrains
+warm-started from its previous model, then its scores are recomputed and
+validation metrics tracked.
+
+Everything runs on one device (``device``, default ``cuda``). A fixed
+effect over sparse features takes the column-sorted gradient path: its
+``CSCTranspose`` is built once per coordinate, and every gradient and TRON
+Hessian-vector product of its fits goes through the resolved ``sparse_grad``
+mode's ``X^T d`` (``"auto"`` is ``"csc_kernel"``: on the card, the
+``multiply_prefix_sum`` kernel). Random effects solve their buckets with
+``game/random_effect.py``'s batched solvers.
+
+Optimizer-space coefficients (normalization folded into the objective)
+stay internal; scoring and saved models use model-space coefficients.
+
+Not ported yet, each raising and naming its ROADMAP item: streaming and
+disk-backed fixed effects (16), a mesh (15), entity sharding, the entity
+table budget and in-job recovery (17).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.evaluation import get_evaluator
+from photon_ml_tpu_torch.evaluation.device import (
+    make_device_evaluator, make_grouped_device_evaluator,
+)
+from photon_ml_tpu_torch.game.data import (
+    HostSparse, RandomEffectTrainData, SketchProjection,
+    build_random_effect_data, build_score_view, host_sparse_from_features,
+)
+from photon_ml_tpu_torch.game.random_effect import (
+    _check_re_optimizer, score_random_effect, train_random_effect,
+)
+from photon_ml_tpu_torch.game.sampling import down_sample
+from photon_ml_tpu_torch.models import (
+    Coefficients, FixedEffectModel, GameModel, GeneralizedLinearModel,
+    RandomEffectBucket, RandomEffectModel,
+)
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.ops.objective import make_objective
+from photon_ml_tpu_torch.ops.regularization import (
+    RegularizationContext, RegularizationType,
+)
+from photon_ml_tpu_torch.optimize import OptimizerConfig, get_optimizer
+from photon_ml_tpu_torch.parallel.data_parallel import (
+    make_csc_path, resolve_sparse_grad,
+)
+from photon_ml_tpu_torch.types import (
+    LabeledBatch, SparseFeatures, margins as _margins, resolve_device,
+)
+
+_log = logging.getLogger(__name__)
+
+_CSC_MODES = ("csc", "csc_kernel", "csc_precise", "csc_segment")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what}: not ported yet, ROADMAP Queue 1 "
+                               f"item {item}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateConfig:
+    """Per-coordinate optimization configuration (the reference's
+    ``FixedEffectOptimizationConfiguration`` /
+    ``RandomEffectOptimizationConfiguration`` parameter surface)."""
+
+    name: str
+    coordinate_type: str = "fixed"  # "fixed" | "random"
+    feature_shard: str = "global"
+    entity_column: Optional[str] = None  # required for random
+    # "auto": L-BFGS for fixed and random coordinates
+    # (random_effect.resolve_re_optimizer). Explicit: "lbfgs" |
+    # "tron" (fixed only) | "owlqn", plus "newton" (random only)
+    optimizer: str = "auto"
+    max_iters: int = 100
+    tolerance: float = 1e-8
+    reg_type: str | RegularizationType = RegularizationType.NONE
+    reg_weight: float = 0.0
+    elastic_net_alpha: float = 0.5
+    down_sampling_rate: float = 1.0  # fixed-effect only
+    # fixed-effect sparse gradient: "auto" (resolve_sparse_grad: the
+    # column-sorted kernel path for sparse features), "scatter", "csc",
+    # "csc_kernel", "csc_precise" or "csc_segment"
+    sparse_grad: str = "auto"
+    streaming: bool = False  # ROADMAP item 16
+    chunk_rows: int = 1 << 16
+    prefetch_depth: Optional[int] = None
+    active_cap: Optional[int] = None  # random-effect only
+    num_buckets: int = 4  # random-effect entity size buckets
+    # Active-set coordinate descent (random-effect only): entities whose
+    # solver converged are frozen; a later sweep re-solves an entity only
+    # if its residual offsets drifted by more than active_tol (max-abs over
+    # its rows, relative to max(1, |offsets|)) since its last solve. Every
+    # refresh_every-th sweep re-solves every entity. active_tol=None is a
+    # few ulps of the working dtype.
+    active_set: bool = True
+    refresh_every: int = 4
+    active_tol: Optional[float] = None
+    # random-effect projector: "subspace" (exact per-entity maps) or
+    # "random" (shared count-sketch of width projection_dim)
+    projection: str = "subspace"
+    projection_dim: Optional[int] = None
+    projection_seed: int = 0
+    # False | True/"diagonal" (1/diag(H)) | "full" (diag(H^-1))
+    compute_variance: bool | str = False
+    normalization: Optional[NormalizationContext] = None
+    intercept_index: int = -1
+
+    def reg_context(self) -> RegularizationContext:
+        return RegularizationContext(RegularizationType(self.reg_type),
+                                     self.elastic_net_alpha)
+
+    def opt_config(self) -> OptimizerConfig:
+        return OptimizerConfig(max_iters=self.max_iters,
+                               tolerance=self.tolerance)
+
+    def __post_init__(self):
+        if self.coordinate_type not in ("fixed", "random"):
+            raise ValueError(f"coordinate_type must be fixed|random, got "
+                             f"{self.coordinate_type}")
+        if self.coordinate_type == "random" and self.entity_column is None:
+            raise ValueError(f"random coordinate '{self.name}' needs "
+                             "entity_column")
+        if self.streaming:
+            raise _not_ported(f"coordinate '{self.name}': streaming=True",
+                              "16 (streaming)")
+        if self.optimizer == "newton" and self.coordinate_type != "random":
+            raise ValueError(
+                f"coordinate '{self.name}': optimizer='{self.optimizer}' "
+                "selects a batched per-entity solver — random coordinates "
+                "only (fixed effects use lbfgs/owlqn/tron)")
+        if self.coordinate_type == "random":
+            _check_re_optimizer(self.optimizer)
+        if (self.coordinate_type == "random" and self.normalization is not None
+                and self.projection == "random"):
+            raise ValueError(
+                f"random coordinate '{self.name}': normalization is not "
+                "supported with projection='random' (count-sketch slots mix "
+                "features); use projection='subspace'")
+        if self.compute_variance not in (False, True, "diagonal", "full"):
+            raise ValueError(
+                f"compute_variance={self.compute_variance!r}; expected "
+                "False, True, 'diagonal' or 'full'")
+        if self.prefetch_depth is not None and self.prefetch_depth < 0:
+            raise ValueError(
+                f"coordinate '{self.name}': prefetch_depth must be >= 0, "
+                f"got {self.prefetch_depth}")
+        if self.refresh_every < 1:
+            raise ValueError(
+                f"coordinate '{self.name}': refresh_every must be >= 1, "
+                f"got {self.refresh_every}")
+        if self.active_tol is not None and not (
+                np.isfinite(self.active_tol) and self.active_tol >= 0):
+            raise ValueError(
+                f"coordinate '{self.name}': active_tol must be finite and "
+                f">= 0, got {self.active_tol}")
+
+
+@dataclasses.dataclass
+class GameDataset:
+    """Host-resident GAME dataset: shared labels/weights/offsets plus one
+    feature matrix per shard and one id column per entity type."""
+
+    features: Dict[str, HostSparse]
+    labels: np.ndarray
+    weights: np.ndarray
+    offsets: np.ndarray
+    entity_ids: Dict[str, np.ndarray]
+    group_ids: Optional[np.ndarray] = None  # for per_group_* evaluators
+    # disk-backed shards (ROADMAP item 16): must be None here
+    feature_sources: Optional[Dict[str, object]] = None
+
+    def __post_init__(self):
+        if self.feature_sources:
+            raise _not_ported("GameDataset(feature_sources=...)",
+                              "16 (streaming)")
+        self.labels = np.asarray(self.labels, np.float64)
+        n = len(self.labels)
+        self.weights = (np.ones(n) if self.weights is None
+                        else np.asarray(self.weights, np.float64))
+        self.offsets = (np.zeros(n) if self.offsets is None
+                        else np.asarray(self.offsets, np.float64))
+        self.features = {k: host_sparse_from_features(v)
+                         for k, v in self.features.items()}
+
+    @property
+    def num_samples(self) -> int:
+        return len(self.labels)
+
+
+def make_game_dataset(features, labels, weights=None, offsets=None,
+                      entity_ids=None, group_ids=None) -> GameDataset:
+    if not isinstance(features, dict):
+        features = {"global": features}
+    return GameDataset(features, labels, weights, offsets, entity_ids or {},
+                       group_ids)
+
+
+def _device_features(sp: HostSparse, dtype, device) -> SparseFeatures:
+    return SparseFeatures(
+        torch.as_tensor(sp.indices, dtype=torch.int32, device=device),
+        None if sp.values is None
+        else torch.as_tensor(sp.values, device=device).to(dtype),
+        dim=sp.dim)
+
+
+class _ResidualTotal:
+    """Running residual total ``base + sum(coordinate scores)``, updated
+    by subtract/add on the changed coordinate and re-derived once per sweep
+    (``resync``, summing in the configs' order) so the running updates'
+    rounding cannot accumulate across sweeps."""
+
+    def __init__(self, base):
+        self.base = base
+        self.total = base
+
+    def resync(self, scores: Dict[str, torch.Tensor]) -> None:
+        self.total = self.base + sum(scores.values())
+
+    def excluding(self, name: str, scores: Dict[str, torch.Tensor]):
+        """Residual offsets for one coordinate: everything but its own
+        scores."""
+        return self.total - scores[name]
+
+    def replace(self, old_scores, new_scores) -> None:
+        self.total = self.total - old_scores + new_scores
+
+
+def _drift_active_masks(buckets, frozen, offs_np: np.ndarray,
+                        snap: np.ndarray, tol: float) -> List[np.ndarray]:
+    """Per-bucket active masks for a non-refresh sweep: an entity is
+    re-solved when it never converged (``~frozen``) or when its residual
+    offsets drifted: the max-abs change over its rows since its last solve
+    exceeds ``tol * max(1, |snapshot|_inf over its rows)``."""
+    d_all = np.abs(offs_np - snap)
+    masks: List[np.ndarray] = []
+    for b, bucket in enumerate(buckets):
+        E = bucket.num_entities
+        if E == 0:
+            masks.append(np.zeros(0, bool))
+            continue
+        sidx = bucket.sample_idx
+        valid = sidx >= 0
+        safe = np.maximum(sidx, 0)
+        drift = np.max(d_all[safe] * valid, axis=1)
+        scale = np.maximum(1.0, np.max(np.abs(snap)[safe] * valid, axis=1))
+        masks.append(~frozen[b] | (drift > tol * scale))
+    return masks
+
+
+class _FixedState:
+    """Per-coordinate fixed-effect state: the device batch, the
+    column-sorted view (sparse features) and the fit closure."""
+
+    def __init__(self, cfg: CoordinateConfig, data: GameDataset, dtype,
+                 task: str, device: torch.device):
+        sp = data.features[cfg.feature_shard]
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = device
+        self.dim = sp.dim
+        self.n_all = data.num_samples
+        if cfg.down_sampling_rate < 1.0:
+            rows, w = down_sample(data.labels, data.weights,
+                                  cfg.down_sampling_rate, task=task, seed=0)
+        else:
+            rows, w = np.arange(data.num_samples), data.weights
+        self.train_rows = torch.as_tensor(rows, dtype=torch.long,
+                                          device=device)
+        self.w: Optional[torch.Tensor] = None  # optimizer (training) space
+        self.variances = None
+
+        reg = cfg.reg_context()
+        self.l2 = reg.l2_weight(cfg.reg_weight)
+        self.l1 = reg.l1_weight(cfg.reg_weight)
+        optimizer = "lbfgs" if cfg.optimizer == "auto" else cfg.optimizer
+        if self.l1 > 0 and optimizer != "owlqn":
+            optimizer = "owlqn"  # the reference routes L1 to OWL-QN
+        self.optimizer = optimizer
+        self.obj = make_objective(task, normalization=cfg.normalization,
+                                  intercept_index=cfg.intercept_index)
+        self._opt = get_optimizer(optimizer)
+
+        full = rows.shape[0] == data.num_samples
+        feats = SparseFeatures(
+            torch.as_tensor(sp.indices if full else sp.indices[rows],
+                            dtype=torch.int32, device=device),
+            # implicit-ones shards stay value-free
+            (None if sp.values is None else
+             torch.as_tensor(sp.values if full else sp.values[rows],
+                             device=device).to(dtype)),
+            dim=sp.dim)
+        self.labels = torch.as_tensor(data.labels[rows],
+                                      device=device).to(dtype)
+        self.weights = torch.as_tensor(w, device=device).to(dtype)
+        self.feats = feats
+        self.l1_mask = None
+        if cfg.intercept_index >= 0:
+            self.l1_mask = torch.ones(self.dim, dtype=dtype, device=device)
+            self.l1_mask[cfg.intercept_index] = 0.0
+
+        self.sparse_grad = resolve_sparse_grad(cfg.sparse_grad, feats)
+        self.csc = None
+        if self.sparse_grad in _CSC_MODES:
+            build, self._fg_csc, self._hvp_csc = make_csc_path(
+                self.obj, use_kernel=self.sparse_grad == "csc_kernel",
+                precise=self.sparse_grad == "csc_precise",
+                segment=self.sparse_grad == "csc_segment")
+            # sorted once here: offsets change every step, the sparsity
+            # pattern never does
+            self.csc = build(self._batch(torch.zeros_like(self.labels)))
+        # the training copy is the scoring copy when every row trains
+        self.full_features = (feats if full
+                              else _device_features(sp, dtype, device))
+
+    def _batch(self, offs) -> LabeledBatch:
+        return LabeledBatch(self.feats, self.labels, offs, self.weights)
+
+    def _closures(self, batch: LabeledBatch):
+        """(fun_and_grad, value, hvp) of this step's objective."""
+        l2, obj = self.l2, self.obj
+        if self.csc is not None:
+            csc = self.csc
+            return (lambda w: self._fg_csc(w, batch, csc, l2),
+                    lambda w: obj.value(w, batch, l2),
+                    lambda w, v: self._hvp_csc(w, v, batch, csc, l2))
+        return (lambda w: obj.value_and_grad(w, batch, l2),
+                lambda w: obj.value(w, batch, l2),
+                lambda w, v: obj.hvp(w, v, batch, l2))
+
+    def fit(self, offsets_full: torch.Tensor, opt_config=None):
+        run_cfg = self.cfg.opt_config() if opt_config is None else opt_config
+        offs = offsets_full[self.train_rows].to(self.dtype)
+        batch = self._batch(offs)
+        fg, value, hvp = self._closures(batch)
+        w0 = self.w if self.w is not None else torch.zeros(
+            self.dim, dtype=self.dtype, device=self.device)
+        if self.optimizer == "owlqn":
+            res = self._opt(fg, w0, self.l1, run_cfg, l1_mask=self.l1_mask,
+                            fun=value)
+        elif self.optimizer == "tron":
+            res = self._opt(fg, w0, run_cfg, hvp=hvp)
+        else:
+            res = self._opt(fg, w0, run_cfg)
+        self.w = res.w
+        if self.cfg.compute_variance:
+            mode = ("full" if self.cfg.compute_variance == "full"
+                    else "diagonal")
+            self.variances = self.obj.coefficient_variances(
+                res.w, batch, self.l2, mode=mode)
+        return res
+
+    def train_scores(self, w_model: torch.Tensor) -> torch.Tensor:
+        """This coordinate's margins over every training row."""
+        return _margins(self.full_features, w_model)
+
+    def model_space_w(self) -> torch.Tensor:
+        """Raw-feature-space coefficients for scoring/saving."""
+        if self.cfg.normalization is not None:
+            return self.cfg.normalization.to_model_space(self.w)
+        return self.w
+
+
+class _RandomState:
+    def __init__(self, cfg: CoordinateConfig, data: GameDataset,
+                 cache: Optional[dict] = None):
+        sp = data.features[cfg.feature_shard]
+        ids = data.entity_ids[cfg.entity_column]
+        key = ("re_data", id(data), cfg.name, cfg.feature_shard,
+               cfg.entity_column, cfg.num_buckets, cfg.active_cap,
+               cfg.projection, cfg.projection_dim, cfg.projection_seed)
+        if cache is not None and key in cache:
+            # entry[0] pins the keyed dataset alive so its id() cannot be
+            # recycled while the cache lives
+            _, self.train_data, self.train_view = cache[key]
+        else:
+            self.train_data: RandomEffectTrainData = build_random_effect_data(
+                sp, data.labels, data.weights, ids,
+                effect_name=cfg.name, num_buckets=cfg.num_buckets,
+                active_cap=cfg.active_cap,
+                projection=cfg.projection,
+                projection_dim=cfg.projection_dim,
+                projection_seed=cfg.projection_seed,
+            )
+            self.train_view = build_score_view(self.train_data, sp, ids)
+            if cache is not None:
+                cache[key] = (data, self.train_data, self.train_view)
+        self.coeffs: Optional[List[np.ndarray]] = None
+        self.variances = None
+        # active-set tracking: per-bucket masks of frozen entities (their
+        # solver converged at their last solve); None until the first solve
+        self.frozen: Optional[List[np.ndarray]] = None
+        # residual offsets as of each row's entity's last solve: the drift
+        # reference for re-activation (length-n host vector)
+        self.offs_snap: Optional[np.ndarray] = None
+
+
+class CoordinateDescent:
+    """Run the GAME block-coordinate loop over a list of coordinates on one
+    device (``device``, default ``cuda``)."""
+
+    def __init__(
+        self,
+        configs: Sequence[CoordinateConfig],
+        task: str = "logistic",
+        n_iterations: int = 1,
+        mesh=None,
+        evaluators: Sequence[str] = (),
+        dtype=torch.float32,
+        verbose: bool = False,
+        dataset_cache: Optional[dict] = None,
+        cd_tolerance: float = 0.0,
+        solver_tol_schedule=None,
+        entity_shard=None,
+        entity_table_budget_bytes: Optional[int] = None,
+        recovery=None,
+        device=None,
+    ):
+        if mesh is not None:
+            raise _not_ported("CoordinateDescent(mesh=...)",
+                              "15 (multi-device)")
+        if entity_shard is not None:
+            raise _not_ported("CoordinateDescent(entity_shard=...)",
+                              "17 (multi-host and recovery)")
+        if entity_table_budget_bytes is not None:
+            raise _not_ported(
+                "CoordinateDescent(entity_table_budget_bytes=...)",
+                "17 (multi-host and recovery)")
+        if recovery is not None:
+            raise _not_ported("CoordinateDescent(recovery=...)",
+                              "17 (multi-host and recovery)")
+        names = [c.name for c in configs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate coordinate names: {names}")
+        if not np.isfinite(cd_tolerance) or cd_tolerance < 0:
+            raise ValueError(f"cd_tolerance must be finite and >= 0, got "
+                             f"{cd_tolerance}")
+        self.configs = list(configs)
+        self.task = task
+        self.n_iterations = n_iterations
+        self.evaluator_names = list(evaluators)
+        self.dtype = dtype
+        self.verbose = verbose
+        # sweep-level early exit: stop when every coordinate's score vector
+        # moved by at most cd_tolerance (max-abs) over a sweep; 0 disables
+        self.cd_tolerance = float(cd_tolerance)
+        # optimize.ToleranceSchedule (or None): loose solver tolerance on
+        # early sweeps, tightening to each coordinate's own tolerance
+        self.solver_tol_schedule = solver_tol_schedule
+        # shared across runs by GameEstimator so the per-entity bucketing
+        # is built once per dataset, not once per grid point
+        self.dataset_cache = dataset_cache
+        self.device = resolve_device(device)
+
+    # -- main loop -------------------------------------------------------
+    def run(
+        self,
+        train: GameDataset,
+        validation: Optional[GameDataset] = None,
+        warm_start: Optional[GameModel] = None,
+        locked: Sequence[str] = (),
+        checkpoint_callback=None,
+    ) -> Tuple[GameModel, List[dict]]:
+        dtype, dev = self.dtype, self.device
+        n = train.num_samples
+        locked = set(locked)
+        unknown_locked = locked - {c.name for c in self.configs}
+        if unknown_locked:
+            raise ValueError(f"locked coordinates not in configs: "
+                             f"{unknown_locked}")
+        if locked:
+            covered = (set() if warm_start is None
+                       else set(warm_start.coordinates))
+            uncovered = locked - covered
+            if uncovered:
+                raise ValueError(
+                    f"locked coordinates {sorted(uncovered)} need a "
+                    "warm_start model providing their coefficients")
+
+        states: Dict[str, object] = {}
+        val_states: Dict[str, object] = {}
+        val_feats: Dict[str, SparseFeatures] = {}
+        for cfg in self.configs:
+            if cfg.coordinate_type == "fixed":
+                states[cfg.name] = _FixedState(cfg, train, dtype, self.task,
+                                               dev)
+                if validation is not None:
+                    val_feats[cfg.name] = _device_features(
+                        validation.features[cfg.feature_shard], dtype, dev)
+        self._build_random_states(train, validation, states, val_states)
+
+        scores = {c.name: torch.zeros(n, dtype=dtype, device=dev)
+                  for c in self.configs}
+        val_n = validation.num_samples if validation is not None else 0
+        val_scores = {c.name: torch.zeros(val_n, dtype=dtype, device=dev)
+                      for c in self.configs}
+        if warm_start is not None:
+            self._load_warm_start(warm_start, states, scores, val_scores,
+                                  train, validation, val_states, val_feats)
+
+        base = torch.as_tensor(train.offsets, device=dev).to(dtype)
+        history: List[dict] = []
+        evaluators = [get_evaluator(e) for e in self.evaluator_names]
+
+        # per-iteration validation metrics run on the device where a device
+        # form exists; the definitive host float64 numbers are recomputed
+        # once for the final history record below
+        device_evals: dict = {}
+        if validation is not None and evaluators:
+            for ev in evaluators:
+                if ev.grouped:
+                    device_evals[ev.name] = (
+                        None if validation.group_ids is None
+                        else make_grouped_device_evaluator(
+                            ev.name, validation.group_ids, device=dev))
+                else:
+                    device_evals[ev.name] = make_device_evaluator(
+                        ev.name, device=dev)
+            val_labels_dev = torch.as_tensor(validation.labels,
+                                             device=dev).to(dtype)
+            val_weights_dev = torch.as_tensor(validation.weights,
+                                              device=dev).to(dtype)
+            val_offsets_dev = torch.as_tensor(validation.offsets,
+                                              device=dev).to(dtype)
+
+        rt = _ResidualTotal(base)
+        vt = (_ResidualTotal(val_offsets_dev)
+              if validation is not None and evaluators else None)
+        eps = float(torch.finfo(dtype).eps)
+        stop_reason = "max_iterations"
+
+        for it in range(self.n_iterations):
+            rt.resync(scores)
+            if vt is not None:
+                vt.resync(val_scores)
+            sweep_deltas: Dict[str, float] = {}
+            for cfg in self.configs:
+                st = states[cfg.name]
+                t0 = time.time()
+                offs = rt.excluding(cfg.name, scores)
+                record = {"iteration": it, "coordinate": cfg.name}
+                run_cfg = None
+                if self.solver_tol_schedule is not None:
+                    run_cfg = dataclasses.replace(
+                        cfg.opt_config(),
+                        tolerance=self.solver_tol_schedule.at(
+                            it, cfg.tolerance))
+                    record["solver_tolerance"] = run_cfg.tolerance
+                score_delta = 0.0
+                if cfg.name not in locked:
+                    if cfg.coordinate_type == "fixed":
+                        res = st.fit(offs, opt_config=run_cfg)
+                        record.update(
+                            loss=float(res.value),
+                            converged=bool(res.converged),
+                            optimizer_iterations=int(res.iterations))
+                        w_model = st.model_space_w()
+                        new_scores = st.train_scores(w_model)
+                        score_delta = float(torch.max(torch.abs(
+                            new_scores - scores[cfg.name]))) if n else 0.0
+                        rt.replace(scores[cfg.name], new_scores)
+                        scores[cfg.name] = new_scores
+                        if validation is not None:
+                            new_v = _margins(val_feats[cfg.name], w_model)
+                            if vt is not None:
+                                vt.replace(val_scores[cfg.name], new_v)
+                            val_scores[cfg.name] = new_v
+                    else:
+                        score_delta = self._random_step(
+                            cfg, st, it, offs, run_cfg, scores, val_scores,
+                            val_states, rt, vt, n, val_n, validation, eps,
+                            record)
+                record["comm_seconds"] = 0.0
+                record["solve_seconds"] = time.time() - t0
+                t_eval = time.time()
+                if vt is not None:
+                    v_total_host = None
+                    for ev in evaluators:
+                        fn = device_evals.get(ev.name)
+                        if fn is not None:
+                            record[ev.name] = float(
+                                fn(vt.total, val_labels_dev, val_weights_dev))
+                        else:  # grouped without ids / no device form
+                            if v_total_host is None:
+                                v_total_host = vt.total.cpu().numpy()
+                            record[ev.name] = ev.evaluate(
+                                v_total_host, validation.labels,
+                                validation.weights, validation.group_ids)
+                record["eval_seconds"] = time.time() - t_eval
+                record["seconds"] = time.time() - t0
+                record["score_delta"] = score_delta
+                sweep_deltas[cfg.name] = score_delta
+                _log.log(logging.INFO if self.verbose else logging.DEBUG,
+                         "cd.step %s", record)
+                history.append(record)
+            if checkpoint_callback is not None:
+                checkpoint_callback(it, self._build_model(states))
+            if (self.cd_tolerance > 0 and sweep_deltas and
+                    all(d <= self.cd_tolerance
+                        for d in sweep_deltas.values())):
+                # every coordinate's scores are stationary to within
+                # cd_tolerance: the remaining sweeps would re-derive the
+                # same model
+                stop_reason = "cd_tolerance"
+                _log.log(logging.INFO if self.verbose else logging.DEBUG,
+                         "cd.early_exit after sweep %d: max score delta "
+                         "%.3g <= cd_tolerance %.3g", it,
+                         max(sweep_deltas.values()), self.cd_tolerance)
+                break
+        if history:
+            history[-1]["stop_reason"] = stop_reason
+
+        # definitive final metrics: the host float64 evaluators (model
+        # selection reads history[-1])
+        if history and validation is not None and evaluators:
+            v_total = (val_offsets_dev
+                       + sum(val_scores.values())).cpu().numpy()
+            for ev in evaluators:
+                history[-1][ev.name] = ev.evaluate(
+                    v_total, validation.labels, validation.weights,
+                    validation.group_ids)
+
+        return self._build_model(states), history
+
+    # -- helpers ---------------------------------------------------------
+    def _build_random_states(self, train, validation, states, val_states):
+        """Build every random coordinate's ``_RandomState`` and its
+        validation score view."""
+        for cfg in self.configs:
+            if cfg.coordinate_type != "random":
+                continue
+            states[cfg.name] = _RandomState(cfg, train,
+                                            cache=self.dataset_cache)
+            if validation is not None:
+                st: _RandomState = states[cfg.name]
+                key = ("val_view", id(validation), id(st.train_data))
+                cache = self.dataset_cache
+                if cache is not None and key in cache:
+                    val_states[cfg.name] = cache[key][2]
+                else:
+                    sp = validation.features[cfg.feature_shard]
+                    ids = validation.entity_ids[cfg.entity_column]
+                    val_states[cfg.name] = build_score_view(st.train_data,
+                                                            sp, ids)
+                    if cache is not None:
+                        cache[key] = (validation, st.train_data,
+                                      val_states[cfg.name])
+
+    def _random_step(self, cfg, st, it, offs, run_cfg, scores, val_scores,
+                     val_states, rt, vt, n, val_n, validation, eps,
+                     record) -> float:
+        """One random-effect coordinate step with active-set freezing and
+        incremental rescoring. Returns the coordinate's score delta."""
+        dev = self.device
+        refresh = (st.coeffs is None or st.frozen is None
+                   or st.offs_snap is None or not cfg.active_set
+                   or it % cfg.refresh_every == 0)
+        active = None
+        offs_np = None
+        if not refresh:
+            offs_np = offs.cpu().numpy()
+            tol = cfg.active_tol if cfg.active_tol is not None else 0.0
+            # floor at a few ulps of the working dtype: a tolerance below
+            # the arithmetic noise would never skip anything
+            tol = max(float(tol), 8.0 * eps)
+            active = _drift_active_masks(st.train_data.buckets, st.frozen,
+                                         offs_np, st.offs_snap, tol)
+            if sum(int(a.sum()) for a in active) == 0:
+                # every entity frozen with stationary offsets: solve and
+                # rescore are skipped outright
+                record.update(converged_fraction=1.0,
+                              mean_optimizer_iterations=0.0,
+                              entities_solved=0, refresh=False)
+                return 0.0
+        reg = cfg.reg_context()
+        fit = train_random_effect(
+            st.train_data, offs, task=self.task,
+            l2=reg.l2_weight(cfg.reg_weight),
+            l1=reg.l1_weight(cfg.reg_weight),
+            optimizer=cfg.optimizer,
+            config=run_cfg if run_cfg is not None else cfg.opt_config(),
+            w0=st.coeffs, compute_variance=cfg.compute_variance,
+            dtype=self.dtype, normalization=cfg.normalization,
+            active=active, prev_variances=st.variances, device=dev)
+        if cfg.active_set:
+            st.frozen = [np.asarray(c) for c in fit.converged]
+            if offs_np is None:
+                offs_np = offs.cpu().numpy()
+            if active is None or st.offs_snap is None:
+                st.offs_snap = np.array(offs_np, copy=True)
+            else:
+                # re-solved entities get a fresh drift reference; frozen
+                # ones keep the offsets they last solved against
+                for b, bucket in enumerate(st.train_data.buckets):
+                    if bucket.num_entities == 0 or not active[b].any():
+                        continue
+                    rows = bucket.sample_idx[active[b]]
+                    rows = rows[rows >= 0]
+                    st.offs_snap[rows] = offs_np[rows]
+        st.coeffs = fit.coefficients
+        st.variances = fit.variances
+        record.update(
+            converged_fraction=fit.converged_fraction,
+            mean_optimizer_iterations=fit.mean_iterations,
+            entities_solved=fit.entities_solved,
+            refresh=bool(refresh))
+        # incremental rescoring after a partial solve: only rows of
+        # re-solved entities are recomputed and overwritten
+        prev = scores[cfg.name]
+        new = score_random_effect(
+            st.train_view, st.coeffs, n, self.dtype,
+            prev=None if active is None else prev, changed=active,
+            device=dev)
+        delta = float(torch.max(torch.abs(new - prev))) if n else 0.0
+        rt.replace(prev, new)
+        scores[cfg.name] = new
+        if validation is not None and cfg.name in val_states:
+            new_v = score_random_effect(
+                val_states[cfg.name], st.coeffs, val_n, self.dtype,
+                prev=None if active is None else val_scores[cfg.name],
+                changed=active, device=dev)
+            if vt is not None:
+                vt.replace(val_scores[cfg.name], new_v)
+            val_scores[cfg.name] = new_v
+        return delta
+
+    def _build_model(self, states) -> GameModel:
+        coords = {}
+        for cfg in self.configs:
+            st = states[cfg.name]
+            if cfg.coordinate_type == "fixed":
+                coef = Coefficients(st.model_space_w(), st.variances)
+                coords[cfg.name] = FixedEffectModel(
+                    GeneralizedLinearModel(coef, self.task),
+                    cfg.feature_shard)
+            else:
+                buckets = []
+                for b, bucket in enumerate(st.train_data.buckets):
+                    lm0 = bucket.local_maps[0] if bucket.local_maps else None
+                    buckets.append(RandomEffectBucket(
+                        entity_ids=bucket.entity_ids,
+                        coefficients=st.coeffs[b],
+                        projection=bucket.projection,
+                        variances=(None if st.variances is None
+                                   else st.variances[b]),
+                        sketch=(lm0 if isinstance(lm0, SketchProjection)
+                                else None)))
+                coords[cfg.name] = RandomEffectModel(
+                    cfg.name, buckets, self.task, cfg.feature_shard,
+                    entity_column=cfg.entity_column)
+        return GameModel(coords, self.task)
+
+    def _load_warm_start(self, model, states, scores, val_scores,
+                         train, validation, val_states, val_feats):
+        """Initialize coordinate states and scores from a previous
+        GameModel. Saved coefficients are model space; internal state is
+        optimizer space, converted through the normalization context."""
+        dev = self.device
+        for cfg in self.configs:
+            prev = model.coordinates.get(cfg.name)
+            if prev is None:
+                continue
+            st = states[cfg.name]
+            if cfg.coordinate_type == "fixed":
+                w_model = torch.as_tensor(
+                    prev.model.coefficients.means, device=dev).to(self.dtype)
+                st.w = (cfg.normalization.to_training_space(w_model)
+                        if cfg.normalization is not None else w_model)
+                scores[cfg.name] = st.train_scores(w_model)
+                if validation is not None:
+                    val_scores[cfg.name] = _margins(val_feats[cfg.name],
+                                                    w_model)
+            else:
+                coeffs = _coeffs_from_prev(prev, st.train_data)
+                st.coeffs = coeffs
+                scores[cfg.name] = score_random_effect(
+                    st.train_view, coeffs, train.num_samples, self.dtype,
+                    device=dev)
+                if validation is not None and cfg.name in val_states:
+                    val_scores[cfg.name] = score_random_effect(
+                        val_states[cfg.name], coeffs,
+                        validation.num_samples, self.dtype, device=dev)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _coeffs_from_prev(prev, train_data) -> List[np.ndarray]:
+    """Fill a training-layout coefficient table from a previous model's
+    entity table: one dict probe per entity, the slot remapping in numpy
+    group operations."""
+    prev_index = prev.entity_index()
+    coeffs = []
+    for bucket in train_data.buckets:
+        W = np.zeros((bucket.num_entities, bucket.local_dim))
+        rows, pbs, prs = [], [], []
+        for r, eid in enumerate(bucket.entity_ids):
+            slot = prev_index.get(eid)
+            if slot is None:  # loaded models key entities as str
+                slot = prev_index.get(str(eid))
+            if slot is not None:
+                rows.append(r)
+                pbs.append(slot[0])
+                prs.append(slot[1])
+        if rows:
+            rows_a = np.asarray(rows)
+            pbs_a = np.asarray(pbs)
+            prs_a = np.asarray(prs)
+            for pb in np.unique(pbs_a):
+                sel = pbs_a == pb
+                _warm_fill_bucket(W, bucket, rows_a[sel],
+                                  prev.buckets[int(pb)], prs_a[sel])
+        coeffs.append(W)
+    return coeffs
+
+
+def _warm_fill_bucket(W, bucket, rows, prev_bucket, prs) -> None:
+    """Warm-start slot remap for one (current bucket, previous bucket)
+    entity group: ``W[rows]`` receives the previous coefficients of rows
+    ``prs`` of ``prev_bucket``, re-addressed from the previous per-entity
+    subspaces to the current ones by a composite-key join (entity-local
+    row id * 2^32 + global feature id). Identical sketches copy rows
+    wholesale; a previous exact subspace warm-starts a sketched coordinate
+    through the sketch; a previous sketch cannot be inverted, so those
+    entities start cold."""
+    cur_lm0 = bucket.local_maps[0] if bucket.num_entities else None
+    cur_sketched = isinstance(cur_lm0, SketchProjection)
+    C = _host(prev_bucket.coefficients)[prs]             # [M, Dp]
+    if prev_bucket.sketch is not None:
+        if cur_sketched and cur_lm0 == prev_bucket.sketch:
+            W[rows, : C.shape[1]] = C
+        return
+    P = _host(prev_bucket.projection)[prs]              # [M, Dp] gids, -1 pad
+    valid_p = (P >= 0) & (C != 0)
+    if cur_sketched:
+        slots, signs = cur_lm0.slots_signs(np.maximum(P, 0).ravel())
+        flat = valid_p.ravel()
+        np.add.at(
+            W,
+            (np.repeat(rows, P.shape[1])[flat], slots[flat]),
+            (C.ravel() * signs)[flat],
+        )
+        return
+    curP = np.asarray(bucket.projection)[rows]           # [M, Dc] gids, -1 pad
+    M, Dp = P.shape
+    Dc = curP.shape[1]
+    BIG = np.int64(1) << 32
+    m_ids = np.arange(M, dtype=np.int64)
+    kp = (m_ids[:, None] * BIG + P).ravel()[valid_p.ravel()]
+    cvals = C.ravel()[valid_p.ravel()]
+    if not len(kp):
+        return
+    order = np.argsort(kp)
+    kp, cvals = kp[order], cvals[order]
+    valid_c = (curP >= 0).ravel()
+    kc = (m_ids[:, None] * BIG + curP).ravel()[valid_c]
+    pos = np.minimum(np.searchsorted(kp, kc), len(kp) - 1)
+    hit = kp[pos] == kc
+    rows_flat = np.repeat(rows, Dc)[valid_c]
+    slots_flat = np.tile(np.arange(Dc), M)[valid_c]
+    W[rows_flat[hit], slots_flat[hit]] = cvals[pos[hit]]

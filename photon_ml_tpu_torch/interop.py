@@ -5,8 +5,8 @@ such arrays (or any numpy input) and build the port's tensors on ``device``
 (default ``cuda``). A GLM's only weights are its coefficient vector ``w``
 and the normalization vectors. Host-side objects of the JAX package cross
 by their numpy fields (duck-typed, so nothing of that package is imported
-here): a ``HostSparse`` becomes a port batch, and a ``GameModel`` the
-port's ``GameModel``. Saved models make the same crossing through files
+here): a ``HostSparse`` becomes a port batch, a ``GameDataset`` the port's
+``GameDataset``, and a ``GameModel`` the port's ``GameModel``. Saved models make the same crossing through files
 (``io/model_io.py`` writes the JAX package's layout).
 """
 
@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.game.data import SketchProjection
+from photon_ml_tpu_torch.game.data import HostSparse, SketchProjection
 from photon_ml_tpu_torch.models import (
     Coefficients, FixedEffectModel, GameModel, GeneralizedLinearModel,
     RandomEffectBucket, RandomEffectModel,
@@ -130,3 +130,25 @@ def game_model_from_numpy(model, dtype=torch.float64,
                     glm.task),
                 coord.feature_shard)
     return GameModel(coords, model.task)
+
+
+def game_dataset_from_numpy(dataset):
+    """The port's GameDataset from a GameDataset of the JAX package (or any
+    object of the same shape): host numpy throughout, as both packages keep
+    it. Disk-backed shards (``feature_sources``) are not carried."""
+    from photon_ml_tpu_torch.game.descent import GameDataset
+
+    if getattr(dataset, "feature_sources", None):
+        raise ValueError("a GameDataset with feature_sources (disk-backed "
+                         "shards) cannot cross: stream support is ROADMAP "
+                         "Queue 1 item 16")
+    features = {
+        name: HostSparse(np.array(sp.indices),
+                         None if sp.values is None else np.array(sp.values),
+                         int(sp.dim))
+        for name, sp in dataset.features.items()}
+    return GameDataset(
+        features, np.array(dataset.labels), np.array(dataset.weights),
+        np.array(dataset.offsets),
+        {k: np.array(v) for k, v in dataset.entity_ids.items()},
+        None if dataset.group_ids is None else np.array(dataset.group_ids))

@@ -18,7 +18,6 @@ raw zlib per the spec).
 from __future__ import annotations
 
 import hashlib
-import io
 import json
 import os
 import struct
@@ -116,12 +115,24 @@ def dump_schema(schema) -> str:
 
 
 # -- binary primitives -----------------------------------------------------
-def _write_long(out: BinaryIO, n: int) -> None:
+_ONE_BYTE = [bytes([n]) for n in range(0x80)]
+
+
+def _long_bytes(n: int) -> bytes:
+    """The zig-zag varint encoding of ``n``."""
     n = (n << 1) ^ (n >> 63)  # zig-zag
+    if n < 0x80:
+        return _ONE_BYTE[n]
+    out = bytearray()
     while (n & ~0x7F) != 0:
-        out.write(bytes([(n & 0x7F) | 0x80]))
+        out.append((n & 0x7F) | 0x80)
         n >>= 7
-    out.write(bytes([n & 0x7F]))
+    out.append(n)
+    return bytes(out)
+
+
+def _write_long(out: BinaryIO, n: int) -> None:
+    out.write(_long_bytes(n))
 
 
 def _read_long_or_eof(f: BinaryIO):
@@ -144,7 +155,7 @@ def _read_long_or_eof(f: BinaryIO):
     return (acc >> 1) ^ -(acc & 1)  # un-zig-zag
 
 
-def _read_long(buf: io.BytesIO) -> int:
+def _read_long(buf: BinaryIO) -> int:
     v = _read_long_or_eof(buf)
     if v is None:
         raise EOFError("truncated varint")
@@ -152,67 +163,106 @@ def _read_long(buf: io.BytesIO) -> int:
 
 
 # -- datum encode/decode ---------------------------------------------------
-def write_datum(out: BinaryIO, datum, schema) -> None:
+# Each schema compiles once into nested closures (``_encoder``,
+# ``_decoder``), so a record's fields are not dispatched on their schema
+# type again for every datum; the bytes are those of the Avro spec either
+# way. Recursive named types compile through a forward reference.
+def _encoder(schema, _memo=None):
+    """``enc(datum) -> bytes`` for ``schema``."""
+    memo = {} if _memo is None else _memo
+    key = id(schema)
+    if key in memo:
+        cell = memo[key]
+        return lambda d: cell[0](d)
     t = _schema_type(schema)
+    if isinstance(t, (dict, list)):
+        return _encoder(t, memo)
     if t == "null":
-        return
+        return lambda d: b""
     if t == "boolean":
-        out.write(b"\x01" if datum else b"\x00")
-    elif t in ("int", "long"):
-        _write_long(out, int(datum))
-    elif t == "float":
-        out.write(struct.pack("<f", float(datum)))
-    elif t == "double":
-        out.write(struct.pack("<d", float(datum)))
-    elif t == "bytes":
-        raw = bytes(datum)
-        _write_long(out, len(raw))
-        out.write(raw)
-    elif t == "string":
-        raw = str(datum).encode("utf-8")
-        _write_long(out, len(raw))
-        out.write(raw)
-    elif t == "record":
-        for f in schema["fields"]:
-            name = f["name"]
-            if isinstance(datum, dict):
-                if name in datum:
-                    value = datum[name]
-                elif "default" in f:
-                    value = f["default"]
+        return lambda d: b"\x01" if d else b"\x00"
+    if t in ("int", "long"):
+        return lambda d: _long_bytes(int(d))
+    if t in ("float", "double"):
+        pack = struct.Struct("<f" if t == "float" else "<d").pack
+        return lambda d: pack(float(d))
+    if t == "bytes":
+        def enc_bytes(d):
+            raw = bytes(d)
+            return _long_bytes(len(raw)) + raw
+        return enc_bytes
+    if t == "string":
+        def enc_string(d):
+            raw = str(d).encode("utf-8")
+            return _long_bytes(len(raw)) + raw
+        return enc_string
+    if t == "enum":
+        symbols = schema["symbols"]
+        return lambda d: _long_bytes(symbols.index(d))
+    if t == "fixed":
+        size = schema["size"]
+
+        def enc_fixed(d):
+            raw = bytes(d)
+            if len(raw) != size:
+                raise ValueError(f"fixed size mismatch: {len(raw)} != {size}")
+            return raw
+        return enc_fixed
+    cell = [None]
+    memo[key] = cell
+    if t == "record":
+        fields = [(f["name"], "default" in f, f.get("default"),
+                   _encoder(f["type"], memo)) for f in schema["fields"]]
+
+        def enc(d):
+            parts = []
+            for name, has_default, default, fenc in fields:
+                if isinstance(d, dict):
+                    if name in d:
+                        value = d[name]
+                    elif has_default:
+                        value = default
+                    else:
+                        raise ValueError(f"record field '{name}' missing and "
+                                         "no default")
                 else:
-                    raise ValueError(f"record field '{name}' missing and no default")
-            else:
-                value = getattr(datum, name)
-            write_datum(out, value, f["type"])
+                    value = getattr(d, name)
+                parts.append(fenc(value))
+            return b"".join(parts)
     elif t == "array":
-        items = list(datum)
-        if items:
-            _write_long(out, len(items))
-            for item in items:
-                write_datum(out, item, schema["items"])
-        _write_long(out, 0)
+        ienc = _encoder(schema["items"], memo)
+
+        def enc(d):
+            items = list(d)
+            if not items:
+                return b"\x00"
+            return (_long_bytes(len(items)) + b"".join(map(ienc, items))
+                    + b"\x00")
     elif t == "map":
-        entries = dict(datum)
-        if entries:
-            _write_long(out, len(entries))
-            for k, v in entries.items():
-                write_datum(out, k, "string")
-                write_datum(out, v, schema["values"])
-        _write_long(out, 0)
+        venc = _encoder(schema["values"], memo)
+        kenc = _encoder("string", memo)
+
+        def enc(d):
+            entries = dict(d)
+            if not entries:
+                return b"\x00"
+            return (_long_bytes(len(entries))
+                    + b"".join(kenc(k) + venc(v) for k, v in entries.items())
+                    + b"\x00")
     elif t == "union":
-        idx = _union_branch(datum, schema)
-        _write_long(out, idx)
-        write_datum(out, datum, schema[idx])
-    elif t == "enum":
-        _write_long(out, schema["symbols"].index(datum))
-    elif t == "fixed":
-        raw = bytes(datum)
-        if len(raw) != schema["size"]:
-            raise ValueError(f"fixed size mismatch: {len(raw)} != {schema['size']}")
-        out.write(raw)
+        branches = [_encoder(b, memo) for b in schema]
+
+        def enc(d):
+            idx = _union_branch(d, schema)
+            return _long_bytes(idx) + branches[idx](d)
     else:
         raise ValueError(f"unsupported schema type {t!r}")
+    cell[0] = enc
+    return enc
+
+
+def write_datum(out: BinaryIO, datum, schema) -> None:
+    out.write(_encoder(schema)(datum))
 
 
 def _union_branch(datum, union) -> int:
@@ -242,56 +292,135 @@ def _union_branch(datum, union) -> int:
     raise ValueError(f"no union branch for {type(datum)} in {union}")
 
 
-def read_datum(buf: io.BytesIO, schema):
+def _read_meta(f: BinaryIO) -> dict:
+    """A container header's metadata, an Avro ``map<bytes>``, from a
+    stream (the blocks' records go through ``_decoder``)."""
+    meta = {}
+    while True:
+        count = _read_long(f)
+        if count == 0:
+            return meta
+        if count < 0:  # block with byte-size prefix
+            count = -count
+            _read_long(f)
+        for _ in range(count):
+            key = f.read(_read_long(f)).decode("utf-8")
+            meta[key] = f.read(_read_long(f))
+
+
+def _read_long_at(buf: bytes, pos: int):
+    """A zig-zag varint of ``buf`` at ``pos`` -> (value, next position)."""
+    shift = 0
+    acc = 0
+    try:
+        while True:
+            byte = buf[pos]
+            pos += 1
+            acc |= (byte & 0x7F) << shift
+            if not byte & 0x80:
+                return (acc >> 1) ^ -(acc & 1), pos
+            shift += 7
+    except IndexError:
+        raise EOFError("truncated varint") from None
+
+
+def _take(buf: bytes, pos: int, n: int):
+    end = pos + n
+    if n < 0 or end > len(buf):
+        raise EOFError("truncated datum")
+    return buf[pos:end], end
+
+
+def _decoder(schema, _memo=None):
+    """``dec(buf, pos) -> (datum, next position)`` for ``schema``: the
+    decoder of a container block's records."""
+    memo = {} if _memo is None else _memo
+    key = id(schema)
+    if key in memo:
+        cell = memo[key]
+        return lambda buf, pos: cell[0](buf, pos)
     t = _schema_type(schema)
+    if isinstance(t, (dict, list)):
+        return _decoder(t, memo)
     if t == "null":
-        return None
+        return lambda buf, pos: (None, pos)
     if t == "boolean":
-        return buf.read(1) == b"\x01"
+        def dec_bool(buf, pos):
+            raw, pos = _take(buf, pos, 1)
+            return raw == b"\x01", pos
+        return dec_bool
     if t in ("int", "long"):
-        return _read_long(buf)
-    if t == "float":
-        return struct.unpack("<f", buf.read(4))[0]
-    if t == "double":
-        return struct.unpack("<d", buf.read(8))[0]
+        return _read_long_at
+    if t in ("float", "double"):
+        fmt = struct.Struct("<f" if t == "float" else "<d")
+
+        def dec_real(buf, pos):
+            if pos + fmt.size > len(buf):
+                raise EOFError("truncated datum")
+            return fmt.unpack_from(buf, pos)[0], pos + fmt.size
+        return dec_real
     if t == "bytes":
-        return buf.read(_read_long(buf))
+        def dec_bytes(buf, pos):
+            n, pos = _read_long_at(buf, pos)
+            return _take(buf, pos, n)
+        return dec_bytes
     if t == "string":
-        return buf.read(_read_long(buf)).decode("utf-8")
-    if t == "record":
-        return {f["name"]: read_datum(buf, f["type"]) for f in schema["fields"]}
-    if t == "array":
-        out: List = []
-        while True:
-            count = _read_long(buf)
-            if count == 0:
-                break
-            if count < 0:  # block with byte-size prefix
-                count = -count
-                _read_long(buf)
-            for _ in range(count):
-                out.append(read_datum(buf, schema["items"]))
-        return out
-    if t == "map":
-        entries = {}
-        while True:
-            count = _read_long(buf)
-            if count == 0:
-                break
-            if count < 0:
-                count = -count
-                _read_long(buf)
-            for _ in range(count):
-                k = read_datum(buf, "string")
-                entries[k] = read_datum(buf, schema["values"])
-        return entries
-    if t == "union":
-        return read_datum(buf, schema[_read_long(buf)])
+        def dec_string(buf, pos):
+            n, pos = _read_long_at(buf, pos)
+            raw, pos = _take(buf, pos, n)
+            return raw.decode("utf-8"), pos
+        return dec_string
     if t == "enum":
-        return schema["symbols"][_read_long(buf)]
+        symbols = schema["symbols"]
+
+        def dec_enum(buf, pos):
+            i, pos = _read_long_at(buf, pos)
+            return symbols[i], pos
+        return dec_enum
     if t == "fixed":
-        return buf.read(schema["size"])
-    raise ValueError(f"unsupported schema type {t!r}")
+        size = schema["size"]
+        return lambda buf, pos: _take(buf, pos, size)
+    cell = [None]
+    memo[key] = cell
+    if t == "record":
+        fields = [(f["name"], _decoder(f["type"], memo))
+                  for f in schema["fields"]]
+
+        def dec(buf, pos):
+            out = {}
+            for name, fdec in fields:
+                out[name], pos = fdec(buf, pos)
+            return out, pos
+    elif t in ("array", "map"):
+        vdec = _decoder(schema["items" if t == "array" else "values"], memo)
+        kdec = _decoder("string", memo)
+
+        def dec(buf, pos):
+            out = [] if t == "array" else {}
+            while True:
+                count, pos = _read_long_at(buf, pos)
+                if count == 0:
+                    return out, pos
+                if count < 0:  # block with byte-size prefix
+                    count = -count
+                    _, pos = _read_long_at(buf, pos)
+                for _ in range(count):
+                    if t == "array":
+                        v, pos = vdec(buf, pos)
+                        out.append(v)
+                    else:
+                        k, pos = kdec(buf, pos)
+                        out[k], pos = vdec(buf, pos)
+    elif t == "union":
+        branches = [_decoder(b, memo) for b in schema]
+
+        def dec(buf, pos):
+            i, pos = _read_long_at(buf, pos)
+            return branches[i](buf, pos)
+    else:
+        raise ValueError(f"unsupported schema type {t!r}")
+    cell[0] = dec
+    return dec
 
 
 # -- object container files ------------------------------------------------
@@ -339,10 +468,9 @@ def write_avro_file(
             f.write(sync)
             block.clear()
 
+        enc = _encoder(schema)
         for rec in records:
-            buf = io.BytesIO()
-            write_datum(buf, rec, schema)
-            block.append(buf.getvalue())
+            block.append(enc(rec))
             if len(block) >= block_size:
                 flush()
         flush()
@@ -352,7 +480,7 @@ def _read_header(f: BinaryIO, path: str):
     """Read container-file magic + metadata -> (schema, codec, sync)."""
     if f.read(4) != MAGIC:
         raise ValueError(f"{path}: not an Avro object container file")
-    meta = read_datum(f, _META_SCHEMA)
+    meta = _read_meta(f)
     schema = parse_schema(json.loads(meta["avro.schema"].decode()))
     codec = meta.get("avro.codec", b"null").decode()
     if codec not in ("null", "deflate"):
@@ -363,6 +491,7 @@ def _read_header(f: BinaryIO, path: str):
 
 def _iter_blocks(f: BinaryIO, path: str, schema, codec: str, sync: bytes) -> Iterator:
     """Yield records from a positioned container file, one block at a time."""
+    dec = _decoder(schema)
     while True:
         count = _read_long_or_eof(f)
         if count is None:
@@ -371,9 +500,10 @@ def _iter_blocks(f: BinaryIO, path: str, schema, codec: str, sync: bytes) -> Ite
         payload = f.read(size)
         if codec == "deflate":
             payload = zlib.decompress(payload, -15)
-        block = io.BytesIO(payload)
+        pos = 0
         for _ in range(count):
-            yield read_datum(block, schema)
+            rec, pos = dec(payload, pos)
+            yield rec
         if f.read(16) != sync:
             raise ValueError(f"{path}: sync marker mismatch (corrupt file)")
 

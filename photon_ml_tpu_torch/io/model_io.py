@@ -66,11 +66,30 @@ def _model_index_of(imap, name: str, term: str):
 
 
 def _coef_records(w: np.ndarray, inverse: Dict[int, str]):
-    out = []
-    for idx in np.nonzero(w)[0]:
-        name, term = split_feature_key(inverse[int(idx)])
-        out.append({"name": name, "term": term, "value": float(w[idx])})
-    return out
+    idx = np.nonzero(w)[0]
+    return _sparse_coef_records(idx, w[idx], inverse)
+
+
+def _sparse_coef_records(idx: np.ndarray, vals: np.ndarray,
+                         inverse: Dict[int, str]):
+    """Records of the nonzero ``vals`` at feature ids ``idx`` (ascending),
+    as :func:`_coef_records` gives for the dense vector."""
+    keep = vals != 0
+    return [{"name": name, "term": term, "value": float(v)}
+            for (name, term), v in zip(
+                (split_feature_key(inverse[int(i)]) for i in idx[keep]),
+                vals[keep])]
+
+
+def _entity_records(proj_row: np.ndarray, values_row: np.ndarray,
+                    inverse: Dict[int, str]):
+    """One entity's coefficient records over its subspace: the valid slots
+    in ascending feature id, as the dense vector's nonzeros would come."""
+    valid = proj_row >= 0
+    gids = proj_row[valid]
+    order = np.argsort(gids, kind="stable")
+    return _sparse_coef_records(gids[order], values_row[valid][order],
+                                inverse)
 
 
 def save_game_model(
@@ -171,21 +190,17 @@ def _save_game_model_tree(
                             }
                             yield rec
                             continue
-                        valid = proj[r] >= 0
-                        w = np.zeros(imap.size)
-                        w[proj[r][valid]] = coefs[r][valid]
-                        rec = {
+                        yield {
                             "modelId": str(eid),
                             "modelClass": "RandomEffectModel",
-                            "means": _coef_records(w, inverse),
-                            "variances": None,
+                            "means": _entity_records(proj[r], coefs[r],
+                                                     inverse),
+                            "variances": (
+                                None if variances is None else
+                                _entity_records(proj[r], variances[r],
+                                                inverse)),
                             "lossFunction": model.task,
                         }
-                        if variances is not None:
-                            v = np.zeros(imap.size)
-                            v[proj[r][valid]] = variances[r][valid]
-                            rec["variances"] = _coef_records(v, inverse)
-                        yield rec
 
             write_avro_file(os.path.join(sub, "coefficients.avro"), records(),
                             BAYESIAN_LINEAR_MODEL_SCHEMA)

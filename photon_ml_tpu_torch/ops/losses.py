@@ -47,17 +47,39 @@ class PointwiseLoss:
     d2: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+# The logistic functions are built from exp and log1p only. On the CPU,
+# torch.logaddexp and torch.sigmoid round an element differently in their
+# vectorized body and their scalar tail, so a value would depend on its
+# position in the tensor; exp and log1p do not. The batched random-effect
+# solvers rely on that: an entity gives the same bits wherever it sits in a
+# block.
+def _softplus(margin):
+    """``log(1 + e^m)``, stable on both sides; each branch is evaluated at
+    a clamped margin, so neither overflows and forward-mode derivatives are
+    right at 0."""
+    neg = torch.log1p(torch.exp(torch.clamp(margin, max=0.0)))
+    pos = margin + torch.log1p(torch.exp(-torch.clamp(margin, min=0.0)))
+    return torch.where(margin > 0, pos, neg)
+
+
+def _sigmoid(margin):
+    """``1 / (1 + e^-m)``, built the same way as :func:`_softplus`."""
+    pos = 1.0 / (1.0 + torch.exp(-torch.clamp(margin, min=0.0)))
+    e = torch.exp(torch.clamp(margin, max=0.0))
+    return torch.where(margin >= 0, pos, e / (1.0 + e))
+
+
 def _logistic_loss(margin, label):
-    # -log p(y|m) for y in {0,1}, p = sigmoid(m); stable via logaddexp
-    return torch.logaddexp(torch.zeros_like(margin), margin) - label * margin
+    # -log p(y|m) for y in {0,1}, p = sigmoid(m)
+    return _softplus(margin) - label * margin
 
 
 def _logistic_d1(margin, label):
-    return torch.sigmoid(margin) - label
+    return _sigmoid(margin) - label
 
 
 def _logistic_d2(margin, label):
-    p = torch.sigmoid(margin)
+    p = _sigmoid(margin)
     return p * (1.0 - p)
 
 

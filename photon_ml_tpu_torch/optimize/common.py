@@ -106,7 +106,10 @@ def parse_tolerance_schedule(spec: str) -> Optional[ToleranceSchedule]:
 class OptimizationResult(NamedTuple):
     """Final point + convergence record. ``loss_history`` and
     ``grad_norm_history`` are [max_iters], NaN past ``iterations``;
-    ``host_syncs`` counts the device-to-host reads the loop made."""
+    ``host_syncs`` counts the device-to-host reads the loop made.
+    ``solver_tolerance`` and ``screened_dim`` are set by the path solver
+    (``optimize/path.py``): the tolerance the fit ran to and the width of
+    the problem it finally solved."""
 
     w: torch.Tensor
     value: torch.Tensor
@@ -116,6 +119,8 @@ class OptimizationResult(NamedTuple):
     loss_history: torch.Tensor
     grad_norm_history: torch.Tensor
     host_syncs: int
+    solver_tolerance: Optional[float] = None
+    screened_dim: Optional[int] = None
 
 
 def _clamped_tol(tol, dtype, device) -> torch.Tensor:

@@ -160,3 +160,148 @@ def test_glm_driver_on_card_matches_cpu(cuda, tmp_path):
         w_card = card["global"].model.coefficients.means
         w_cpu = cpu["global"].model.coefficients.means
         assert float((w_card - w_cpu).norm() / w_cpu.norm()) < 1e-9
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def test_path_walk_on_card_matches_cpu(cuda):
+    """A screened elastic-net path walk (6 lambdas from lambda_max, f64,
+    25 OWL-QN iterations per solve at tolerance 0) on the card and on the
+    CPU: per lambda the same candidates, rounds and support, and ``w``
+    within 1e-9 relative L2; the certification passes and restricted
+    solves launch the kernel."""
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optimize import PathConfig
+    from photon_ml_tpu_torch.optimize.path import PathSolver
+
+    idx, y, dim = _fit_inputs(seed=3)
+    walks = {}
+    for dev in ("cpu", "cuda"):
+        batch = batch_from_numpy(idx, None, y, dim=dim, dtype=torch.float64,
+                                 device=dev)
+        solver = PathSolver(
+            make_objective("logistic"),
+            RegularizationContext("elastic_net", alpha=0.9), batch=batch,
+            config=OptimizerConfig(max_iters=25, tolerance=0.0),
+            path_config=PathConfig(screen="strong"))
+        grid = np.geomspace(solver.lambda_max(), 0.05 * solver.lambda_max(),
+                            6)
+        launches = multiply_prefix_sum.launches
+        walks[dev] = ([solver.solve(float(lam)) for lam in grid],
+                      multiply_prefix_sum.launches - launches)
+    (cpu, _), (card, launched) = walks["cpu"], walks["cuda"]
+    assert launched > 0
+    for (rc, sc), (rg, sg) in zip(cpu, card):
+        assert sg.certified and sc.certified
+        assert (sg.candidate_size, sg.kkt_rounds, sg.screened_dim) == \
+            (sc.candidate_size, sc.kkt_rounds, sc.screened_dim)
+        assert torch.equal(rg.w.cpu() != 0, rc.w != 0)
+        assert _rel(rg.w.cpu(), rc.w) < 1e-9
+
+
+def test_path_walk_f32_on_card(cuda):
+    """The same walk in float32, with the GLM driver's default solver
+    settings (100 iterations, tolerance 1e-7), on the card: every lambda
+    certified; where the solve was restricted, a fresh full gradient meets
+    the KKT condition within the certification slack at the coordinates
+    the strong rule froze; at every solution the kernel's certification
+    gradient equals the CPU's plain one within 1e-5 relative L2 (the card
+    and the CPU may round a float32 margin differently)."""
+    from photon_ml_tpu_torch.ops.objective import kkt_residuals
+    from photon_ml_tpu_torch.ops.regularization import (
+        RegularizationContext, kkt_slack, screening_threshold,
+    )
+    from photon_ml_tpu_torch.optimize import PathConfig
+    from photon_ml_tpu_torch.optimize.path import PathSolver
+
+    idx, y, dim = _fit_inputs(seed=3)
+    reg = RegularizationContext("elastic_net", alpha=0.9)
+    solvers = {dev: PathSolver(
+        make_objective("logistic"), reg,
+        batch=batch_from_numpy(idx, None, y, dim=dim, dtype=torch.float32,
+                               device=dev),
+        config=OptimizerConfig(max_iters=100, tolerance=1e-7),
+        path_config=PathConfig(screen="strong")) for dev in ("cpu", "cuda")}
+    solver = solvers["cuda"]
+    grid = np.geomspace(solver.lambda_max(), 0.05 * solver.lambda_max(), 6)
+    launches = multiply_prefix_sum.launches
+    walk = [solver.solve(float(lam)) for lam in grid]
+    assert multiply_prefix_sum.launches > launches
+    w_prev, g_prev, l1_prev = solver._probe()
+    restricted = 0
+    for lam, (res, st) in zip(grid, walk):
+        assert st.certified and bool(torch.isfinite(res.w).all())
+        g = solver._full_grad(res.w)
+        assert _rel(g.cpu(), solvers["cpu"]._full_grad(res.w.cpu())) < 1e-5
+        l1 = reg.l1_weight(float(lam))
+        if st.screened_dim < dim:
+            restricted += 1
+            thr = screening_threshold("strong", l1, max(l1_prev, l1))
+            frozen = (g_prev.abs() < thr) & (w_prev == 0) & (res.w == 0)
+            r = kkt_residuals(res.w, g, l1)[frozen]
+            assert float(r.max()) <= kkt_slack(l1, PathConfig().kkt_tol)
+        w_prev, g_prev, l1_prev = res.w, g, l1
+    assert restricted > 0
+
+
+def test_game_cd_on_card_matches_cpu(cuda):
+    """Three sweeps of GAME coordinate descent (a sparse fixed effect, a
+    per-user random effect by Newton, a per-item one by L-BFGS; tolerance 0
+    pins every solver's iteration count) on the card and on the CPU at f64:
+    every coefficient within 1e-9 relative L2 and
+    the final validation AUC within 1e-9; the fixed coordinate's fits
+    launch the kernel; two card runs are bit-identical."""
+    from photon_ml_tpu_torch.game.data import HostSparse
+    from photon_ml_tpu_torch.game.descent import (
+        CoordinateConfig, CoordinateDescent, make_game_dataset,
+    )
+
+    r = np.random.default_rng(7)
+    n, dim, k = 3000, 256, 12
+    idx = r.integers(0, dim, (n, k)).astype(np.int32)
+    y = (r.random(n) < 1 / (1 + np.exp(-r.normal(size=dim)[idx].sum(1))))
+    users, items = r.integers(0, 120, n), r.integers(0, 30, n)
+
+    def part(rows):
+        return make_game_dataset(
+            {"global": HostSparse(idx[rows], None, dim)},
+            y[rows].astype(float),
+            entity_ids={"user": users[rows], "item": items[rows]})
+
+    train, val = part(slice(0, 2400)), part(slice(2400, n))
+    configs = [
+        CoordinateConfig("fixed", reg_type="l2", reg_weight=1.0,
+                         max_iters=10, tolerance=0.0),
+        CoordinateConfig("per_user", coordinate_type="random",
+                         entity_column="user", optimizer="newton",
+                         max_iters=5, tolerance=0.0, reg_type="l2",
+                         reg_weight=1.0),
+        CoordinateConfig("per_item", coordinate_type="random",
+                         entity_column="item", optimizer="lbfgs",
+                         max_iters=5, tolerance=0.0, reg_type="l2",
+                         reg_weight=1.0),
+    ]
+    runs = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        launches = multiply_prefix_sum.launches
+        model, hist = CoordinateDescent(
+            configs, n_iterations=3, evaluators=["auc"],
+            dtype=torch.float64, device=dev).run(train, val)
+        runs.setdefault(dev, []).append(
+            (model, hist, multiply_prefix_sum.launches - launches))
+    (cpu, h_cpu, _), = runs["cpu"]
+    (card, h_card, launched), (again, _, _) = runs["cuda"]
+    assert launched > 0
+    assert abs(h_card[-1]["auc"] - h_cpu[-1]["auc"]) <= 1e-9
+    assert _rel(card["fixed"].model.coefficients.means.cpu(),
+                cpu["fixed"].model.coefficients.means) < 1e-9
+    assert torch.equal(card["fixed"].model.coefficients.means,
+                       again["fixed"].model.coefficients.means)
+    for name in ("per_user", "per_item"):
+        for bg, bc, ba in zip(card[name].buckets, cpu[name].buckets,
+                              again[name].buckets):
+            assert _rel(bg.coefficients, bc.coefficients) < 1e-9
+            assert np.array_equal(bg.coefficients, ba.coefficients)

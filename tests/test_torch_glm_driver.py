@@ -197,7 +197,7 @@ def test_diagnostics_report_matches(runs):
     (["--process-id", "0"], "15 and 17"),
     (["--auto-resume"], "17"),
     (["--max-rank-failures", "1"], "17"),
-    (["--path-screen", "strong"], "9"),
+    (["--auto-resume", "--path-screen", "strong"], "17"),
     (["--profile-dir", "prof"], "20"),
     (["--trace-dir", "trace"], "20"),
 ])

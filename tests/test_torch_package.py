@@ -58,7 +58,9 @@ def test_every_module_is_checked():
                    "models/glm", "game/data", "io/avro", "io/data_reader",
                    "io/native_reader", "io/paldb", "io/model_io",
                    "native/__init__", "ops/statistics", "diagnostics",
-                   "cli/glm_driver"):
+                   "cli/glm_driver", "optimize/path", "optimize/batched",
+                   "game/random_effect", "game/descent", "game/scoring",
+                   "game/sampling", "estimators"):
         assert f"photon_ml_tpu_torch/{module}.py" in names, module
 
 
@@ -99,6 +101,55 @@ def _fit(optimizer):
 _SCORES = (np.array([0.1, 0.7, 0.3, 0.9]), np.array([0.0, 1.0, 0.0, 1.0]))
 
 
+def _game():
+    """A four-row GAME dataset with one user per pair of rows, and its
+    per-user random-effect data."""
+    from photon_ml_tpu_torch.game.data import (
+        build_random_effect_data, build_score_view,
+    )
+    from photon_ml_tpu_torch.game.descent import make_game_dataset
+
+    x = np.array([[1.0, 0.5], [0.2, 1.0], [1.0, -0.3], [0.4, 0.1]])
+    ds = make_game_dataset({"global": x}, _SCORES[1],
+                           entity_ids={"user": np.array([0, 0, 1, 1])})
+    data = build_random_effect_data(x, ds.labels, ds.weights,
+                                    ds.entity_ids["user"])
+    return ds, data, build_score_view(data, x, ds.entity_ids["user"])
+
+
+def _game_entry(name):
+    from photon_ml_tpu_torch import estimators
+    from photon_ml_tpu_torch.game import descent, random_effect, scoring
+
+    cfgs = [descent.CoordinateConfig("fixed", max_iters=2),
+            descent.CoordinateConfig("per_user", coordinate_type="random",
+                                     entity_column="user", max_iters=2)]
+
+    def run(device):
+        ds, data, view = _game()
+        if name == "train_random_effect":
+            return random_effect.train_random_effect(
+                data, np.zeros(4), config=OptimizerConfig(max_iters=2),
+                device=device)
+        if name == "score_random_effect":
+            return random_effect.score_random_effect(
+                view, [np.ones((b.num_entities, b.local_dim))
+                       for b in data.buckets], 4, device=device)
+        model = descent.CoordinateDescent(cfgs, device="cpu").run(ds)[0]
+        if name == "CoordinateDescent":
+            return descent.CoordinateDescent(cfgs, device=device)
+        if name == "GameEstimator":
+            return estimators.GameEstimator(device=device)
+        if name == "GameTransformer":
+            return estimators.GameTransformer(model, device=device)
+        if name == "GlmPathEstimator":
+            return estimators.GlmPathEstimator(device=device)
+        return scoring.score_game_model(model, ds.features, ds.entity_ids,
+                                        device=device)
+
+    return run
+
+
 ENTRY_POINTS = {
     "make_batch": lambda device: types.make_batch(
         np.ones((2, 3)), np.ones(2), device=device),
@@ -136,6 +187,10 @@ ENTRY_POINTS = {
     "make_grouped_device_evaluator": lambda device:
         evaluation.make_grouped_device_evaluator(
             "per_group_auc", [0, 0, 1, 1], device=device),
+    **{name: _game_entry(name) for name in (
+        "train_random_effect", "score_random_effect", "CoordinateDescent",
+        "GameEstimator", "GameTransformer", "GlmPathEstimator",
+        "score_game_model")},
 }
 
 
