@@ -74,10 +74,10 @@ Phases, each of which raises on failure (so any failure exits non-zero):
 11. the random-effect bucket solve at ``scripts/bench_game.py``'s chip
     shape (100,000 entities x 64 rows x 32 local dims, 8 nonzeros per row,
     float32, drawn on the card; 10 iterations at tolerance 0, l2 0.5) by the
-    batched Newton solver and by the batched L-BFGS: entities per second of
-    each, what ``optimizer="auto"`` resolves to, and the first 1,024
-    entities re-solved on the CPU in float64 by the same solver (each within
-    1e-3 relative L2);
+    batched Newton solver, the batched L-BFGS and the batched TRON:
+    entities per second of each, what ``optimizer="auto"`` resolves to, and
+    the first 1,024 entities re-solved on the CPU in float64 by the same
+    solver (each within 1e-3 relative L2);
 12. GAME coordinate descent through ``GameEstimator.fit`` at
     ``scripts/bench_game.py``'s CD shape: n = 2^17 rows, d = 2^16, k = 39
     implicit ones, user ids uniform over 100,000 and item ids over 10,000,
@@ -88,12 +88,26 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     sweep, entities solved and kernel launches per fixed fit. Gates: every
     fixed fit launches the kernel; the first sweep's fixed ``w`` within
     1e-3 of a run with ``sparse_grad="csc"``; ``GameTransformer`` scores
-    the validation rows as CD's final validation scores within 1e-5; the
-    model saved by ``save_game_model`` reloads and scores the same.
+    the validation rows as CD's final validation scores within 1e-5;
+13. the GAME command-line path at phase 12's shape: the same rows written
+    as Avro files of named features (``f0`` ... ``f65535``, value 1, plus
+    the intercept the driver adds) with ``user`` and ``item`` in
+    ``metadataMap``, by 10 spawn workers; ``feature_indexing_driver.main``
+    builds the index map; ``game_training_driver.main`` trains phase 12's
+    coordinates (``per_item`` by the batched TRON) for 3 sweeps, then 2
+    Bayesian tuning rounds of the fixed coordinate's reg weight, and saves
+    ``best``; ``game_scoring_driver.main`` scores the validation files with
+    the saved model. It prints each driver stage's seconds, the host
+    bucket builds, each sweep's seconds per coordinate and each fixed fit's
+    launches. Gates: every fixed fit launches the kernel; two tuning rounds
+    logged; the scoring driver's scores of the reloaded ``best`` within
+    1e-5 of the training run's final validation scores of the selected
+    configuration, and its AUC within 1e-6 of ``driver_done``'s.
 
 Each fit's launch count is set to 0 just before it and read just after
-(for phase 9: before and after the driver's run; for phases 10 and 12:
-before and after each of the four walks and the estimator's fit).
+(for phases 9 and 13: before and after the training driver's run; for
+phases 10 and 12: before and after each of the four walks and the
+estimator's fit).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -143,6 +157,10 @@ RE_CHECK = 1024  # entities re-solved on the CPU in float64
 GAME_ROWS, GAME_VAL_ROWS, GAME_DIM = 1 << 17, 1 << 15, 1 << 16
 GAME_USERS, GAME_ITEMS, GAME_SWEEPS = 100_000, 10_000, 3
 TOL_SCORE = 1e-5  # max |diff| of two scorings of the validation rows
+# phase 13, the GAME drivers at phase 12's shape: Avro files of 2^14 rows,
+# 2 Bayesian tuning rounds after the one grid point
+GAME_FILE_ROWS, GAME_TUNING_ROUNDS = 1 << 14, 2
+TOL_DRIVER_AUC = 1e-6  # the scoring driver's auc against driver_done's
 # peak device-memory rate, float32 and float64 (non-tensor-core) rates, by
 # card (NVIDIA data sheets, SXM parts)
 PEAKS = {"H200": (4.8e12, 67e12, 34e12), "H100": (3.35e12, 67e12, 34e12)}
@@ -948,8 +966,8 @@ def re_bucket(E, N, D, kk, gen, dev, dtype=torch.float32):
 
 def phase_re_solve(dev, gen, smi):
     """Phase 11: the random-effect bucket solve at scripts/bench_game.py's
-    chip shape with both solvers; the first RE_CHECK entities re-solved on
-    the CPU in float64 by the same solver."""
+    chip shape with the Newton, L-BFGS and TRON solvers; the first RE_CHECK
+    entities re-solved on the CPU in float64 by the same solver."""
     import dataclasses
 
     from photon_ml_tpu_torch.game.data import RandomEffectTrainData
@@ -973,7 +991,7 @@ def phase_re_solve(dev, gen, smi):
                      "sample_idx", "projection")})
     cpu_data = RandomEffectTrainData("random", [cpu_bucket], E * N, {})
     rates = {}
-    for opt in ("newton", "lbfgs"):
+    for opt in ("newton", "lbfgs", "tron"):
         train_random_effect(data, offsets, l2=RE_L2, optimizer=opt,
                             config=cfg, device=dev)  # warm-up
         torch.cuda.synchronize()
@@ -1001,11 +1019,26 @@ def phase_re_solve(dev, gen, smi):
                                f"{rel.max():.3e}")
     from photon_ml_tpu_torch.game import random_effect as re_mod
 
-    print(f"re solve: newton/lbfgs = {rates['newton'] / rates['lbfgs']:.2f}; "
+    print(f"re solve: newton/lbfgs = {rates['newton'] / rates['lbfgs']:.2f}, "
+          f"tron/lbfgs = {rates['tron'] / rates['lbfgs']:.2f}; "
           f"optimizer='auto' resolves to {resolve_re_optimizer('auto')!r}; "
           f"card memory {torch.cuda.get_device_properties(dev).total_memory} "
           f"B, block budget {re_mod._block_budget(dev)} B")
     return rates
+
+
+def game_arrays(total, seed):
+    """(feature ids [total, K] int32, user ids, item ids, labels) of
+    ``make_game_data``: ids uniform over GAME_DIM, GAME_USERS, GAME_ITEMS,
+    labels Bernoulli(sigmoid(x . w_true)) with w_true ~ N(0, 0.5^2)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, GAME_DIM, (total, K)).astype(np.int32)
+    users = rng.integers(0, GAME_USERS, total)
+    items = rng.integers(0, GAME_ITEMS, total)
+    w_true = rng.normal(0.0, 0.5, GAME_DIM)
+    logits = w_true[idx].sum(axis=1)
+    y = (rng.random(total) < 1.0 / (1.0 + np.exp(-logits))).astype(float)
+    return idx, users, items, y
 
 
 def make_game_data(n, n_val, gen_seed):
@@ -1015,21 +1048,14 @@ def make_game_data(n, n_val, gen_seed):
     from photon_ml_tpu_torch.game.data import HostSparse
     from photon_ml_tpu_torch.game.descent import make_game_dataset
 
-    rng = np.random.default_rng(gen_seed)
-    total = n + n_val
-    idx = rng.integers(0, GAME_DIM, (total, K)).astype(np.int32)
-    users = rng.integers(0, GAME_USERS, total)
-    items = rng.integers(0, GAME_ITEMS, total)
-    w_true = rng.normal(0.0, 0.5, GAME_DIM)
-    logits = w_true[idx].sum(axis=1)
-    y = (rng.random(total) < 1.0 / (1.0 + np.exp(-logits))).astype(float)
+    idx, users, items, y = game_arrays(n + n_val, gen_seed)
 
     def part(rows):
         return make_game_dataset(
             {"global": HostSparse(idx[rows], None, GAME_DIM)}, y[rows],
             entity_ids={"user": users[rows], "item": items[rows]})
 
-    return part(slice(0, n)), part(slice(n, total))
+    return part(slice(0, n)), part(slice(n, n + n_val))
 
 
 def game_configs(fixed_grad="auto"):
@@ -1050,15 +1076,11 @@ def game_configs(fixed_grad="auto"):
 def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
     """Phase 12: GAME coordinate descent through GameEstimator.fit at
     scripts/bench_game.py's CD shape, with validation AUC; the fixed
-    coordinate's first fit against the plain "csc" path, GameTransformer
-    against CD's own validation scores, and the saved model reloaded."""
-    import os
-    import tempfile
-
+    coordinate's first fit against the plain "csc" path and
+    GameTransformer against CD's own validation scores (phase 13 saves and
+    reloads the model through the drivers)."""
     from photon_ml_tpu_torch.estimators import GameEstimator, GameTransformer
     from photon_ml_tpu_torch.game import descent
-    from photon_ml_tpu_torch.io.index_map import IndexMap
-    from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
     from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
 
     t0 = time.perf_counter()
@@ -1155,23 +1177,275 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
     if not (np.isfinite(scores).all() and scores.shape == (n_val,)
             and diff <= TOL_SCORE):
         raise RuntimeError(f"GameTransformer scores differ: {diff:.3e}")
-    imap = IndexMap({f"f{i}": i for i in range(GAME_DIM)})
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as root:
-        out = os.path.join(root, "model")
-        t0 = time.perf_counter()
-        save_game_model(result.model, out, {"global": imap})
-        t_save = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        loaded = load_game_model(out, device=dev)
-        t_load = time.perf_counter() - t0
-    again = GameTransformer(loaded, device=dev).transform(val).cpu().numpy()
-    diff = float(np.abs(again - scores).max())
-    print(f"  save_game_model {t_save:.2f} s, load_game_model {t_load:.2f} "
-          f"s; the reloaded model's validation scores: max |diff| "
-          f"{diff:.3e} (tol {TOL_SCORE})")
-    if not diff <= TOL_SCORE:
-        raise RuntimeError(f"the reloaded model scores differently: {diff}")
     return launches
+
+
+def write_game_part(task):
+    """Worker: one Avro file of TrainingExampleAvro records (value 1.0 per
+    feature ``f{j}``, ``user`` and ``item`` in ``metadataMap``) through the
+    port's writer."""
+    path, idx, labels, users, items = task
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+
+    rows = ([(f"f{j}", "", 1.0) for j in row] for row in idx.tolist())
+    write_training_examples(path, rows, labels,
+                            entity_ids={"user": users, "item": items})
+    return path
+
+
+def write_game_fixture(root, n, n_val, file_rows):
+    """``game_arrays``' rows as Avro files, ``n`` training rows under
+    ``root/train`` and ``n_val`` validation rows under
+    ``root/validation``, one spawn worker per file."""
+    import multiprocessing
+    import os
+
+    idx, users, items, y = game_arrays(n + n_val, SEED)
+    tasks = []
+    for sub, lo, hi in (("train", 0, n), ("validation", n, n + n_val)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for part, start in enumerate(range(lo, hi, file_rows)):
+            rows = slice(start, min(start + file_rows, hi))
+            tasks.append((os.path.join(root, sub, f"part-{part:02d}.avro"),
+                          idx[rows], y[rows], users[rows], items[rows]))
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(len(tasks), os.cpu_count() or 1)) as pool:
+        pool.map(write_game_part, tasks)
+    return os.path.join(root, "train"), os.path.join(root, "validation"), \
+        len(tasks)
+
+
+def refit_plain(first):
+    """The training driver's first fixed-coordinate fit (from zeros, on the
+    offsets and settings it was given) again on the same device state,
+    with its gradients through the plain "csc" path instead of the
+    kernel."""
+    from photon_ml_tpu_torch.game import descent
+    from photon_ml_tpu_torch.parallel.data_parallel import make_csc_path
+
+    state = first["state"]
+    if not (first["from_zero"] and state.sparse_grad == "csc_kernel"):
+        raise RuntimeError(f"the driver's first fixed fit ran "
+                           f"sparse_grad={state.sparse_grad!r}, from zeros: "
+                           f"{first['from_zero']}")
+    kept = state.csc, state._fg_csc, state._hvp_csc, state.w
+    build, state._fg_csc, state._hvp_csc = make_csc_path(state.obj)
+    state.csc = build(state._batch(torch.zeros_like(state.labels)))
+    state.w = None
+    try:
+        return descent._FixedState.fit(state, first["offsets"],
+                                       first["opt_config"])
+    finally:
+        state.csc, state._fg_csc, state._hvp_csc, state.w = kept
+
+
+def game_driver_coordinates():
+    """``game_configs()`` as the training driver's coordinate JSON, with
+    the item coordinate solved by the batched TRON."""
+    keys = ("name", "coordinate_type", "entity_column", "max_iters",
+            "tolerance", "num_buckets", "reg_type", "reg_weight")
+    coords = []
+    for cfg in game_configs():
+        c = {k: getattr(cfg, k) for k in keys}
+        if cfg.name == "per_item":
+            c["optimizer"] = "tron"
+        coords.append(c)
+    return json.dumps(coords)
+
+
+def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
+                      file_rows=GAME_FILE_ROWS):
+    """Phase 13: the GAME command-line path at phase 12's shape, written
+    as Avro: the feature indexing driver, the training driver (3 sweeps, 2
+    Bayesian tuning rounds of the fixed coordinate's reg weight) and the
+    scoring driver on the saved ``best`` model. Returns (kernel launches in
+    the training driver's run, the kernel's with-values timing at the fixed
+    coordinate's nnz)."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.cli import (
+        feature_indexing_driver, game_scoring_driver, game_training_driver,
+    )
+    from photon_ml_tpu_torch.game import descent
+    from photon_ml_tpu_torch.io.avro import iter_avro_records
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    def read_log(out):
+        with open(os.path.join(out, "photon.log.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def stages(log):
+        return {e["stage"]: e["seconds"] for e in log
+                if e["event"] == "stage_timing"}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_driver_") as root:
+        t0 = time.perf_counter()
+        train_dir, val_dir, n_files = write_game_fixture(root, n, n_val,
+                                                         file_rows)
+        print(f"game driver fixture: {n} training and {n_val} validation "
+              f"rows, {K} features f0..f{GAME_DIM - 1} of value 1 per row, "
+              f"user and item ids in metadataMap; written in "
+              f"{time.perf_counter() - t0:.2f} s by {n_files} processes")
+        imap_path = os.path.join(root, "index-map.json")
+        t0 = time.perf_counter()
+        if feature_indexing_driver.main(["--data", train_dir,
+                                         "--output", imap_path]) != 0:
+            raise RuntimeError("feature_indexing_driver failed")
+        print(f"  feature_indexing_driver: {time.perf_counter() - t0:.2f} s")
+
+        out = os.path.join(root, "out")
+        argv = ["--train-data", train_dir, "--validation-data", val_dir,
+                "--coordinates", game_driver_coordinates(),
+                "--index-map", imap_path, "--n-iterations", str(GAME_SWEEPS),
+                "--evaluators", "auc", "--tuning-mode", "bayesian",
+                "--tuning-iters", str(GAME_TUNING_ROUNDS),
+                "--tuning-coordinates", "fixed", "--device", str(dev),
+                "--output-dir", out]
+        fixed_fits, builds, scored, finals = [], [], [], []
+        real_fit, real_get = descent._FixedState.fit, descent.get_evaluator
+        real_build = descent.CoordinateDescent._build_random_states
+        real_estimator = game_training_driver.GameEstimator
+
+        first = {}
+
+        def counted_fit(self, offsets_full, opt_config=None):
+            torch.cuda.synchronize()
+            before = multiply_prefix_sum.launches
+            if not first:
+                first.update(state=self, offsets=offsets_full.clone(),
+                             opt_config=opt_config, from_zero=self.w is None)
+            t_fit = time.perf_counter()
+            res = real_fit(self, offsets_full, opt_config)
+            float(res.value)
+            fixed_fits.append((time.perf_counter() - t_fit,
+                               multiply_prefix_sum.launches - before,
+                               res.iterations))
+            first.setdefault("res", res)
+            return res
+
+        def timed_build(self, *a):
+            t_build = time.perf_counter()
+            real_build(self, *a)
+            builds.append(time.perf_counter() - t_build)
+
+        class RecordingEstimator(real_estimator):
+            """Keeps each fit's final validation scores beside its
+            configuration."""
+
+            def fit(self, *a, **kw):
+                results = super().fit(*a, **kw)
+                for r in results:
+                    finals.append(({c.name: c.reg_weight for c in r.configs},
+                                   scored[-1]))
+                return results
+
+        descent._FixedState.fit = counted_fit
+        descent.CoordinateDescent._build_random_states = timed_build
+        descent.get_evaluator = \
+            lambda name: _RecordingEvaluator(real_get(name), scored)
+        game_training_driver.GameEstimator = RecordingEstimator
+        try:
+            torch.cuda.synchronize()
+            multiply_prefix_sum.launches = 0
+            t0 = time.perf_counter()
+            rc = game_training_driver.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = multiply_prefix_sum.launches
+        finally:
+            descent._FixedState.fit = real_fit
+            descent.CoordinateDescent._build_random_states = real_build
+            descent.get_evaluator = real_get
+            game_training_driver.GameEstimator = real_estimator
+        if rc != 0:
+            raise RuntimeError(f"game_training_driver exited with {rc}")
+        log = read_log(out)
+        read = next(e for e in log if e["event"] == "data_read")
+        print(f"game_training_driver: {seconds:.3f} s in all, {launches} "
+              f"kernel launches, {read['num_train']} + "
+              f"{read['num_validation']} rows, {read['num_features']} "
+              f"features, on {smi}")
+        for stage, sec in stages(log).items():
+            print(f"  stage {stage}: {sec:.4f} s")
+        print(f"  random-effect bucket builds (host): "
+              f"{', '.join(f'{b:.2f} s' for b in builds)}")
+        for e in log:
+            if e["event"] == "cd_iteration":
+                extra = ""
+                if "entities_solved" in e:
+                    extra = (f", {e['entities_solved']} entities solved, "
+                             f"mean iterations "
+                             f"{e['mean_optimizer_iterations']:.2f}")
+                print(f"  config {e['config']} sweep {e['iteration']} "
+                      f"{e['coordinate']}: {e['seconds']:.4f} s (solve "
+                      f"{e['solve_seconds']:.4f}){extra}, auc "
+                      f"{e['auc']:.6f}")
+        rounds = [e for e in log if e["event"] == "tuning_round"]
+        for e in rounds:
+            print(f"  tuning round {e['round']}: reg weights "
+                  f"{e['reg_weights']}, auc {e['metrics']['auc']:.6f}")
+        if len(rounds) != GAME_TUNING_ROUNDS:
+            raise RuntimeError(f"{len(rounds)} tuning rounds logged, not "
+                               f"{GAME_TUNING_ROUNDS}")
+        n_fits = (1 + GAME_TUNING_ROUNDS) * GAME_SWEEPS
+        if len(fixed_fits) != n_fits:
+            raise RuntimeError(f"{len(fixed_fits)} fixed-coordinate fits, "
+                               f"not {n_fits}")
+        for i, (sec, n_launch, iters) in enumerate(fixed_fits):
+            print(f"  fixed fit {i}: {iters} iterations, {n_launch} kernel "
+                  f"launches, {sec:.4f} s")
+            if n_launch < 1:
+                raise RuntimeError("a fixed-coordinate fit did not launch the "
+                                   "kernel")
+        check_plain("game_driver fixed fit 0", first["res"],
+                    refit_plain(first))
+        done = log[-1]
+        best_weights = {c["name"]: c["reg_weight"]
+                        for c in done["best_config"]}
+        best_auc = done["best_metrics"]["auc"]
+        want = [sc for weights, sc in finals if weights == best_weights]
+        if len(finals) != 1 + GAME_TUNING_ROUNDS or not want:
+            raise RuntimeError(f"no recorded fit of the selected "
+                               f"configuration {best_weights}")
+
+        sout = os.path.join(root, "scores")
+        t0 = time.perf_counter()
+        rc = game_scoring_driver.main(
+            ["--data", val_dir, "--model-dir", os.path.join(out, "best"),
+             "--output-dir", sout, "--evaluators", "auc",
+             "--device", str(dev)])
+        t_score = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"game_scoring_driver exited with {rc}")
+        slog = read_log(sout)
+        scores = np.array([r["predictionScore"] for r in iter_avro_records(
+            os.path.join(sout, "scores.avro"))])
+        auc = next(e for e in slog if e["event"] == "evaluation")["auc"]
+    print(f"game_scoring_driver: {t_score:.3f} s on {smi}; "
+          + ", ".join(f"stage {k} {v:.4f} s" for k, v in stages(slog).items()))
+    diff = float(np.abs(scores - want[-1]).max()) if scores.shape == \
+        want[-1].shape else float("inf")
+    print(f"  best configuration {best_weights}: the reloaded best/ model's "
+          f"{scores.shape[0]} validation scores against the training run's "
+          f"final ones: max |diff| {diff:.3e} (tol {TOL_SCORE}); auc "
+          f"{auc:.9f} against driver_done's {best_auc:.9f} (tol "
+          f"{TOL_DRIVER_AUC})")
+    if not (np.isfinite(scores).all() and scores.shape == (n_val,)
+            and diff <= TOL_SCORE):
+        raise RuntimeError(f"the scoring driver's scores differ: {diff:.3e}")
+    if not abs(auc - best_auc) <= TOL_DRIVER_AUC:
+        raise RuntimeError(f"the scoring driver's auc {auc} differs from "
+                           f"the training run's {best_auc}")
+    nnz = int(read["num_train"]) * (K + 1)
+    timing = time_scan(nnz, gen, dev, peaks, with_values=True)
+    print(f"multiply_prefix_sum at the game driver's nnz={nnz} (explicit "
+          f"values, f32): kernel {timing['kernel_ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, torch.cumsum "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bytes'] / 1e6:.1f} MB by {timing['bound_by']}) on "
+          f"{smi}")
+    return launches, dict(timing, nnz=nnz)
 
 
 def main() -> int:
@@ -1291,6 +1565,8 @@ def main() -> int:
     max_err = max(max_err, path_timing["max_abs_err"])
     phase_re_solve(dev, gen, smi)
     launches_by_path["game_cd"] = phase_game(dev, smi)
+    launches_by_path["game_driver"], game_driver_timing = phase_game_driver(
+        dev, smi, peaks, gen)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1311,6 +1587,10 @@ def main() -> int:
         "library_ms": timing["library_ms"],
         "glm_driver_with_values": {
             key: driver_timing[key] for key in (
+                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+        "game_driver_with_values": {
+            key: game_driver_timing[key] for key in (
                 "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
         "path_float64_with_values": {

@@ -1,0 +1,78 @@
+"""Argument parsing and output helpers shared by the command-line drivers
+(``glm_driver``, ``game_training_driver``, ``game_scoring_driver``)."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from photon_ml_tpu_torch.io.avro import write_avro_file
+from photon_ml_tpu_torch.io.data_reader import InputColumnsNames
+from photon_ml_tpu_torch.io.index_map import IndexMap
+from photon_ml_tpu_torch.io.schemas import (
+    FEATURE_SUMMARIZATION_SCHEMA, split_feature_key,
+)
+from photon_ml_tpu_torch.optimize import parse_tolerance_schedule
+
+
+def positive_int(value: str) -> int:
+    n = int(value)
+    if n <= 0:
+        raise argparse.ArgumentTypeError(
+            f"expected a positive integer, got {value!r}")
+    return n
+
+
+def tol_schedule(value: str):
+    try:
+        return parse_tolerance_schedule(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def json_arg(spec: str):
+    """JSON given inline or as a path to a file."""
+    if os.path.exists(spec):
+        with open(spec) as f:
+            return json.load(f)
+    return json.loads(spec)
+
+
+def load_input_columns(spec) -> InputColumnsNames:
+    if not spec:
+        return InputColumnsNames()
+    return InputColumnsNames.from_dict(json_arg(spec))
+
+
+def runtime_info(dev: torch.device) -> dict:
+    """The JAX driver's topology keys, for one process on one device."""
+    info = {"process_index": 0, "process_count": 1, "local_devices": 1,
+            "global_devices": 1, "platform": dev.type}
+    if dev.type == "cuda":
+        info["device_name"] = torch.cuda.get_device_name(dev)
+    return info
+
+
+def write_feature_summary(output_dir, summary, imap: IndexMap,
+                          name: str = "feature-summary.avro"):
+    """``name`` under ``output_dir``: one FeatureSummarizationResultAvro
+    record per feature."""
+    inverse = imap.inverse()
+
+    def records():
+        for i in range(summary.dim):
+            feature, term = split_feature_key(inverse[i])
+            yield {
+                "name": feature, "term": term,
+                "mean": float(summary.mean[i]),
+                "variance": float(summary.variance[i]),
+                "min": float(summary.min[i]), "max": float(summary.max[i]),
+                "numNonzeros": float(summary.num_nonzeros[i]),
+                "count": summary.count,
+            }
+
+    write_avro_file(os.path.join(output_dir, name), records(),
+                    FEATURE_SUMMARIZATION_SCHEMA)

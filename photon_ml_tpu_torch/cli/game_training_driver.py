@@ -1,0 +1,451 @@
+"""GAME training driver: the end-to-end training entry point (counterpart of
+``photon_ml_tpu/cli/game_training_driver.py``: its in-memory, single-device
+path).
+
+Equivalent of the reference's ``cli.game.training.GameTrainingDriver``
+(SURVEY.md §4.1): parse params, build or load feature index maps, read Avro
+training data, optionally normalize, train a GAME model per
+optimization-config grid point with validation tracking, optionally tune
+the regularization weights (``tuning/``), select the best by the primary
+evaluator, save best + all models (Avro), and write a structured log. Warm
+start, locked coordinates (partial retrain) and per-iteration checkpoints
+are supported. The output tree and the events and keys of
+``photon.log.jsonl`` are the JAX driver's, so either package's tooling
+reads the other's runs, and a model saved here loads there.
+
+The fits run on ``--device`` (default ``cuda``, which raises without a
+GPU; ``--device cpu`` runs everything on the CPU) through
+``estimators.GameEstimator``: every gradient of a fixed coordinate's
+sparse fits goes through ``ops.kernels``'s ``multiply_prefix_sum`` (the
+hand-written CUDA kernel on the card, its plain version on the CPU), the
+random coordinates through the batched solvers of ``optimize/batched.py``.
+
+Flags of the JAX driver that select parts of the port not written yet
+(streaming, multi-process, entity sharding, recovery, the registry,
+profiling) are accepted by the parser and raise, naming the ROADMAP item
+that ports them; the settings that only refine those parts
+(``--chunk-rows``, ``--recovery-snapshot-every``, ``--trace-sample``) are
+not accepted. The device-loss exit (resume marker, exit code 75) comes with
+item 17.
+
+Usage:
+    python -m photon_ml_tpu_torch.cli.game_training_driver \\
+        --train-data data/train.avro --validation-data data/val.avro \\
+        --output-dir out/ --task logistic_regression \\
+        --coordinates configs/coordinates.json --evaluators auc \\
+        --n-iterations 3
+
+The coordinate config JSON is a list of dicts matching CoordinateConfig
+fields; ``reg_weight`` may be a list to define a grid (cross-product over
+coordinates is expanded).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import os
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.cli._common import (
+    json_arg, load_input_columns, positive_int, runtime_info, tol_schedule,
+    write_feature_summary,
+)
+from photon_ml_tpu_torch.estimators import GameEstimator
+from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
+from photon_ml_tpu_torch.game.descent import CoordinateConfig, GameDataset
+from photon_ml_tpu_torch.io.avro import iter_avro_records
+from photon_ml_tpu_torch.io.data_reader import read_training_examples
+from photon_ml_tpu_torch.io.index_map import (
+    IndexMap, build_index_map, filter_index_map,
+)
+from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
+from photon_ml_tpu_torch.ops.losses import TASK_TO_LOSS
+from photon_ml_tpu_torch.ops.normalization import (
+    NormalizationType, build_normalization_context,
+)
+from photon_ml_tpu_torch.ops.statistics import summarize_features
+from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
+from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
+
+_STREAMING = "16 (streaming)"
+_MULTI = "15 and 17 (multi-device and multi-host)"
+_RECOVERY = "17 (recovery)"
+_OBSERVABILITY = "20 (observability)"
+# flags of the JAX driver whose code paths are not ported yet, by the
+# ROADMAP Queue 1 item that ports them; each raises when set to anything
+# but its default
+_DEFERRED = {
+    "streaming": _STREAMING,
+    "pad_nnz": _STREAMING,
+    "out_of_core_shards": _STREAMING,
+    "chunk_cache_dir": _STREAMING,
+    "chunk_cache_gb": _STREAMING,
+    "prefetch_depth": _STREAMING,
+    "coordinator_address": _MULTI,
+    "num_processes": _MULTI,
+    "process_id": _MULTI,
+    "entity_shards": _MULTI,
+    "re_table_budget_mb": _MULTI,
+    "auto_resume": _RECOVERY,
+    "max_rank_failures": _RECOVERY,
+    "publish_to": "19 (serving and lifecycle)",
+    "profile_dir": _OBSERVABILITY,
+    "trace_dir": _OBSERVABILITY,
+}
+
+
+def _finite_nonneg_float(value: str) -> float:
+    x = float(value)
+    if not np.isfinite(x) or x < 0:
+        raise argparse.ArgumentTypeError(
+            f"expected a finite float >= 0, got {value!r}")
+    return x
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="GAME training driver "
+                                            "(PyTorch port)")
+    p.add_argument("--train-data", required=True, nargs="+",
+                   help="Avro file(s)/dir(s) of TrainingExampleAvro records")
+    p.add_argument("--validation-data", nargs="+", default=None)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--task", default="logistic_regression",
+                   choices=sorted(TASK_TO_LOSS) + sorted(set(TASK_TO_LOSS.values())))
+    p.add_argument("--coordinates", required=True,
+                   help="path to coordinate-config JSON, or inline JSON")
+    p.add_argument("--evaluators", nargs="*", default=None)
+    p.add_argument("--n-iterations", type=int, default=1)
+    p.add_argument("--cd-tolerance", type=_finite_nonneg_float, default=0.0,
+                   help="sweep-level early exit: stop once every "
+                        "coordinate's score vector moved by at most this "
+                        "(max-abs) over a whole sweep; 0 disables (exactly "
+                        "--n-iterations sweeps run)")
+    p.add_argument("--re-active-set", action="store_true", default=None,
+                   help="active-set coordinate descent for random effects "
+                        "(the CoordinateConfig default): converged "
+                        "entities whose coefficients stopped moving are "
+                        "frozen and later sweeps solve only the "
+                        "unconverged frontier")
+    p.add_argument("--no-re-active-set", dest="re_active_set",
+                   action="store_false",
+                   help="re-solve every entity every sweep (the exact "
+                        "fixed-sweep schedule)")
+    p.add_argument("--re-refresh-every", type=positive_int, default=None,
+                   help="with the active set: every K-th sweep is a full "
+                        "refresh that re-solves frozen entities too")
+    p.add_argument("--solver-tol-schedule", type=tol_schedule, default=None,
+                   metavar="START:DECAY",
+                   help="inexact-CD inner-solve tolerance schedule: sweep "
+                        "k solves to max(coordinate tolerance, START * "
+                        "DECAY^k) (e.g. 1e-3:0.1; 'off' disables)")
+    p.add_argument("--index-map", default=None,
+                   help="prebuilt index map (JSON, native store, or hashing "
+                        "config; else built from data)")
+    p.add_argument("--hash-dim", type=int, default=None,
+                   help="feature-hash into this width instead of building an "
+                        "index map (collisions accepted)")
+    p.add_argument("--feature-shards", default=None,
+                   help="JSON (inline or path): shard name -> list of feature-"
+                        "name prefixes (per-shard feature bags); shards not "
+                        "listed get all features")
+    p.add_argument("--min-feature-count", type=int, default=1)
+    p.add_argument("--input-columns", default=None,
+                   help="JSON (inline or path) remapping record field names "
+                        "(response/offset/weight/uid/features/metadata_map)")
+    p.add_argument("--add-intercept", action="store_true", default=True)
+    p.add_argument("--no-intercept", dest="add_intercept", action="store_false")
+    p.add_argument("--normalization", default="none",
+                   choices=[t.value for t in NormalizationType])
+    p.add_argument("--warm-start-model", default=None,
+                   help="model dir to warm start from")
+    p.add_argument("--locked-coordinates", nargs="*", default=(),
+                   help="coordinates kept fixed (partial retrain)")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="save the model after each outer CD iteration")
+    p.add_argument("--save-all-models", action="store_true")
+    p.add_argument("--summarize-features", action="store_true",
+                   help="write FeatureSummarizationResultAvro output")
+    p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the fits (default cuda, which "
+                        "raises without a GPU)")
+    p.add_argument("--tuning-mode", default="none",
+                   choices=["none", "random", "bayesian"],
+                   help="auto-tune reg weights after the grid (SURVEY.md §4.5)")
+    p.add_argument("--tuning-iters", type=int, default=10)
+    p.add_argument("--tuning-range", type=float, nargs=2, default=(1e-4, 1e4),
+                   metavar=("LOW", "HIGH"),
+                   help="log-scale search range for regularization weights")
+    p.add_argument("--tuning-coordinates", nargs="*", default=None,
+                   help="coordinates whose reg weights are tuned (default: all "
+                        "unlocked)")
+    p.add_argument("--tuning-seed", type=int, default=0)
+    # accepted for parity with the JAX driver; each raises (_DEFERRED)
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--pad-nnz", type=int, default=None)
+    p.add_argument("--out-of-core-shards", nargs="*", default=())
+    p.add_argument("--chunk-cache-dir", default=None)
+    p.add_argument("--chunk-cache-gb", type=float, default=None)
+    p.add_argument("--prefetch-depth", type=int, default=None)
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--entity-shards", type=positive_int, default=None)
+    p.add_argument("--re-table-budget-mb", type=float, default=None)
+    p.add_argument("--auto-resume", action="store_true")
+    p.add_argument("--max-rank-failures", type=int, default=0)
+    p.add_argument("--publish-to", default=None)
+    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--trace-dir", default=None)
+    return p
+
+
+def _check_deferred(args, parser: argparse.ArgumentParser) -> None:
+    for dest, item in _DEFERRED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported to the PyTorch driver "
+                             f"yet: ROADMAP Queue 1 item {item}")
+
+
+def _load_coordinate_grid(spec: str) -> List[List[CoordinateConfig]]:
+    raw = json_arg(spec)
+    if not isinstance(raw, list) or not raw:
+        raise ValueError("coordinate config must be a non-empty JSON list")
+    # expand list-valued reg_weight into a grid (the reference's grid of
+    # GameOptimizationConfigurations — SURVEY.md §4.1)
+    per_coord_options: List[List[dict]] = []
+    for c in raw:
+        weights = c.get("reg_weight", 0.0)
+        if isinstance(weights, list):
+            per_coord_options.append([{**c, "reg_weight": w} for w in weights])
+        else:
+            per_coord_options.append([c])
+    return [[CoordinateConfig(**c) for c in combo]
+            for combo in itertools.product(*per_coord_options)]
+
+
+def _entity_columns(grid) -> List[str]:
+    cols = []
+    for cfg in grid[0]:
+        if cfg.coordinate_type == "random" and cfg.entity_column not in cols:
+            cols.append(cfg.entity_column)
+    return cols
+
+
+def _read_dataset(paths, index_maps, entity_columns, columns=None) -> GameDataset:
+    feats, labels, offsets, weights, ents, _ = read_training_examples(
+        paths, index_maps, entity_columns=entity_columns, columns=columns
+    )
+    return GameDataset(feats, labels, weights, offsets, ents, None)
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    _check_deferred(args, parser)
+    return _run(args)
+
+
+def _build_index_maps(args, columns, shards) -> Dict[str, IndexMap]:
+    if args.hash_dim:
+        from photon_ml_tpu_torch.io.hashing import HashingIndexMap
+
+        base_map = HashingIndexMap(args.hash_dim,
+                                   add_intercept=args.add_intercept)
+    elif args.index_map:
+        from photon_ml_tpu_torch.io.paldb import load_index_map
+
+        base_map = load_index_map(args.index_map)
+    else:
+        base_map = build_index_map(
+            iter_avro_records(args.train_data),
+            add_intercept=args.add_intercept,
+            min_count=args.min_feature_count,
+            features_field=columns.features,
+        )
+    shard_defs = json_arg(args.feature_shards) if args.feature_shards else {}
+    if args.hash_dim and any(s in shard_defs for s in shards):
+        raise SystemExit(
+            "--hash-dim cannot be combined with feature-shard prefix "
+            "filtering (a hashing map has no enumerable features); "
+            "give each shard its own driver run or drop --hash-dim")
+    return {s: (filter_index_map(base_map, shard_defs[s],
+                                 add_intercept=args.add_intercept)
+                if s in shard_defs else base_map)
+            for s in shards}
+
+
+def _run(args) -> int:
+    dev = resolve_device(args.device)
+    dtype = resolve_dtype(args.dtype)
+    task = TASK_TO_LOSS.get(args.task, args.task)
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = PhotonLogger(os.path.join(args.output_dir, "photon.log.jsonl"))
+    logger.log("driver_start", driver="game_training", args=vars(args),
+               distributed=False, **runtime_info(dev))
+
+    columns = load_input_columns(args.input_columns)
+    grid = _load_coordinate_grid(args.coordinates)
+    re_overrides = {
+        k: v for k, v in (("active_set", args.re_active_set),
+                          ("refresh_every", args.re_refresh_every))
+        if v is not None
+    }
+    if re_overrides:  # apply to every random coordinate across the grid
+        grid = [[dataclasses.replace(cfg, **re_overrides)
+                 if cfg.coordinate_type == "random" else cfg
+                 for cfg in configs]
+                for configs in grid]
+    shards = sorted({cfg.feature_shard for cfg in grid[0]})
+    entity_columns = _entity_columns(grid)
+
+    # fail fast on bad tuning flags — tuning runs AFTER the (possibly long)
+    # grid training, so catching these there would waste the whole run
+    tuned_coords = None
+    if args.tuning_mode != "none":
+        if not args.validation_data:
+            raise SystemExit("--tuning-mode requires --validation-data")
+        lo, hi = args.tuning_range
+        if not (0 < lo < hi):
+            raise SystemExit(f"--tuning-range needs 0 < LOW < HIGH, got "
+                             f"{lo} {hi}")
+        if args.evaluators is not None and not args.evaluators:
+            raise SystemExit("--tuning-mode needs at least one evaluator "
+                             "(drop the bare --evaluators flag to use the "
+                             "task default)")
+        from photon_ml_tpu_torch.tuning import resolve_tuned_coordinates
+
+        try:
+            tuned_coords = resolve_tuned_coordinates(
+                grid[0], args.tuning_coordinates, args.locked_coordinates)
+        except ValueError as e:
+            raise SystemExit(f"--tuning-coordinates: {e}")
+
+    with Timed(logger, "feature_indexing"):
+        index_maps = _build_index_maps(args, columns, shards)
+
+    with Timed(logger, "read_train_data"):
+        train = _read_dataset(args.train_data, index_maps, entity_columns,
+                              columns)
+    validation = None
+    if args.validation_data:
+        with Timed(logger, "read_validation_data"):
+            validation = _read_dataset(args.validation_data, index_maps,
+                                       entity_columns, columns)
+    logger.log("data_read", num_train=train.num_samples,
+               num_validation=0 if validation is None else validation.num_samples,
+               num_features={s: m.size for s, m in index_maps.items()})
+
+    norm_type = NormalizationType(args.normalization)
+    if norm_type != NormalizationType.NONE or args.summarize_features:
+        contexts = {}
+        with Timed(logger, "feature_summarization"):
+            for shard in shards:
+                sp = train.features[shard]
+                # float32 features, whatever --dtype: the JAX driver
+                # summarizes its default-dtype batch (the moments are
+                # accumulated in float64 on the host either way)
+                feats = SparseFeatures(
+                    torch.from_numpy(sp.indices),
+                    None if sp.values is None
+                    else torch.from_numpy(sp.values), dim=sp.dim)
+                batch = make_batch(feats, train.labels, device=dev)
+                summary = summarize_features(batch)
+                if args.summarize_features:
+                    name = ("feature-summary.avro" if shard == "global"
+                            else f"feature-summary.{shard}.avro")
+                    write_feature_summary(args.output_dir, summary,
+                                   index_maps[shard], name)
+                if norm_type != NormalizationType.NONE:
+                    contexts[shard] = build_normalization_context(
+                        norm_type, summary,
+                        intercept_index=index_maps[shard].intercept_index,
+                        dtype=dtype, device=dev)
+        if norm_type != NormalizationType.NONE:
+            grid = [[dataclasses.replace(
+                        cfg, normalization=contexts[cfg.feature_shard],
+                        intercept_index=index_maps[
+                            cfg.feature_shard].intercept_index)
+                     for cfg in configs]
+                    for configs in grid]
+
+    warm = (load_game_model(args.warm_start_model, device=dev)
+            if args.warm_start_model else None)
+    evaluators = args.evaluators
+    if evaluators is None:
+        evaluators = [TASK_DEFAULT_EVALUATOR[task]] if validation is not None else []
+
+    estimator = GameEstimator(
+        task=task, n_iterations=args.n_iterations, evaluators=evaluators,
+        device=dev, dtype=dtype, cd_tolerance=args.cd_tolerance,
+        solver_tol_schedule=args.solver_tol_schedule,
+    )
+    ckpt = None
+    if args.checkpoint:
+        def ckpt(gi, it, model):
+            path = os.path.join(args.output_dir, "checkpoints",
+                                f"config-{gi}-iter-{it}")
+            save_game_model(model, path, index_maps)
+            logger.log("checkpoint", config=gi, iteration=it, path=path)
+
+    def log_fit(gi, result):
+        for rec in result.history:
+            logger.log("cd_iteration", config=gi, **rec)
+
+    with Timed(logger, "training"):
+        results = estimator.fit(
+            train, validation, config_grid=grid, warm_start=warm,
+            locked=args.locked_coordinates, checkpoint_callback=ckpt,
+            fit_callback=log_fit,
+        )
+
+    if args.tuning_mode != "none":
+        from photon_ml_tpu_torch.tuning import tune_game
+
+        def log_tune(ri, result):
+            logger.log("tuning_round", round=ri,
+                       reg_weights={c.name: c.reg_weight for c in result.configs},
+                       metrics=result.evaluation.metrics)
+
+        with Timed(logger, "hyperparameter_tuning"):
+            tuned = tune_game(
+                estimator, train, validation, list(grid[0]),
+                n_iterations=args.tuning_iters, mode=args.tuning_mode,
+                reg_range=tuple(args.tuning_range), prior_results=results,
+                seed=args.tuning_seed, tuned_coordinates=tuned_coords,
+                fit_callback=log_tune, warm_start=warm,
+                locked=args.locked_coordinates,
+            )
+        results = results + tuned
+
+    best = estimator.select_best(results)
+    with Timed(logger, "save_models"):
+        save_game_model(best.model, os.path.join(args.output_dir, "best"),
+                        index_maps)
+        if args.save_all_models:
+            for gi, r in enumerate(results):
+                save_game_model(
+                    r.model,
+                    os.path.join(args.output_dir, "all", f"config-{gi}"),
+                    index_maps)
+    logger.log("driver_done",
+               best_config=[config_asdict(c) for c in best.configs],
+               best_metrics=None if best.evaluation is None else best.evaluation.metrics)
+    logger.close()
+    return 0
+
+
+def config_asdict(cfg: CoordinateConfig) -> dict:
+    d = dataclasses.asdict(cfg)
+    d.pop("normalization", None)  # device tensors aren't JSON
+    return d
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -43,17 +43,17 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch import diagnostics
+from photon_ml_tpu_torch.cli._common import (
+    runtime_info, tol_schedule, write_feature_summary,
+)
 from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
 from photon_ml_tpu_torch.game.data import HostSparse
-from photon_ml_tpu_torch.io.avro import iter_avro_records, write_avro_file
+from photon_ml_tpu_torch.io.avro import iter_avro_records
 from photon_ml_tpu_torch.io.data_reader import decode_training_examples
 from photon_ml_tpu_torch.io.index_map import IndexMap, build_index_map
 from photon_ml_tpu_torch.io.libsvm import read_libsvm
 from photon_ml_tpu_torch.io.model_io import save_game_model
-from photon_ml_tpu_torch.io.schemas import (
-    FEATURE_SUMMARIZATION_SCHEMA, split_feature_key,
-)
 from photon_ml_tpu_torch.io.validators import validate_training_data
 from photon_ml_tpu_torch.models import (
     Coefficients,
@@ -70,7 +70,7 @@ from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.ops.statistics import summarize_features
 from photon_ml_tpu_torch.optimize import (
-    OptimizerConfig, PathConfig, parse_tolerance_schedule,
+    OptimizerConfig, PathConfig,
 )
 from photon_ml_tpu_torch.optimize.path import PathSolver
 from photon_ml_tpu_torch.parallel.data_parallel import (
@@ -99,13 +99,6 @@ _DEFERRED = {
 }
 
 
-def _tol_schedule(value: str):
-    try:
-        return parse_tolerance_schedule(value)
-    except ValueError as e:
-        raise argparse.ArgumentTypeError(str(e))
-
-
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Classic GLM training driver "
                                             "(staged pipeline, PyTorch)")
@@ -124,7 +117,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--elastic-net-alpha", type=float, default=0.5)
     p.add_argument("--max-iters", type=int, default=100)
     p.add_argument("--tolerance", type=float, default=1e-7)
-    p.add_argument("--solver-tol-schedule", type=_tol_schedule, default=None,
+    p.add_argument("--solver-tol-schedule", type=tol_schedule, default=None,
                    metavar="START:DECAY",
                    help="inexact path-following over the lambda grid: the "
                         "i-th lambda solves to max(--tolerance, START * "
@@ -250,41 +243,11 @@ def _read(paths, fmt, index_map: Optional[IndexMap], add_intercept):
             index_map.intercept_index, decoder)
 
 
-def _write_summary(output_dir, summary, imap: IndexMap):
-    """``feature-summary.avro``: one FeatureSummarizationResultAvro record
-    per feature (the GAME training driver's summary file)."""
-    inverse = imap.inverse()
-
-    def records():
-        for i in range(summary.dim):
-            name, term = split_feature_key(inverse[i])
-            yield {
-                "name": name, "term": term,
-                "mean": float(summary.mean[i]),
-                "variance": float(summary.variance[i]),
-                "min": float(summary.min[i]), "max": float(summary.max[i]),
-                "numNonzeros": float(summary.num_nonzeros[i]),
-                "count": summary.count,
-            }
-
-    write_avro_file(os.path.join(output_dir, "feature-summary.avro"),
-                    records(), FEATURE_SUMMARIZATION_SCHEMA)
-
-
 def _device_batch(host: HostSparse, labels, offsets, weights, dtype, dev):
     feats = SparseFeatures(torch.from_numpy(host.indices),
                            torch.from_numpy(host.values), dim=host.dim)
     return make_batch(feats, labels, offsets, weights, dtype=dtype,
                       device=dev)
-
-
-def _runtime_info(dev: torch.device) -> dict:
-    """The JAX driver's topology keys, for one process on one device."""
-    info = {"process_index": 0, "process_count": 1, "local_devices": 1,
-            "global_devices": 1, "platform": dev.type}
-    if dev.type == "cuda":
-        info["device_name"] = torch.cuda.get_device_name(dev)
-    return info
 
 
 def main(argv: Sequence[str] | None = None) -> int:
@@ -301,7 +264,7 @@ def _run(args) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     logger = PhotonLogger(os.path.join(args.output_dir, "photon.log.jsonl"))
     logger.log("driver_start", driver="glm", args=vars(args),
-               distributed=False, **_runtime_info(dev))
+               distributed=False, **runtime_info(dev))
 
     reg = RegularizationContext(args.reg_type, alpha=args.elastic_net_alpha)
     optimizer = args.optimizer
@@ -377,7 +340,7 @@ def _run(args) -> int:
         with Timed(logger, "feature_summarization"):
             summary = summarize_features(batch)
             if args.summarize_features:
-                _write_summary(args.output_dir, summary, index_map)
+                write_feature_summary(args.output_dir, summary, index_map)
             if norm_type != NormalizationType.NONE:
                 normalization = build_normalization_context(
                     norm_type, summary, intercept_index=intercept_index,

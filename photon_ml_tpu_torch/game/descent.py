@@ -84,7 +84,7 @@ class CoordinateConfig:
     entity_column: Optional[str] = None  # required for random
     # "auto": L-BFGS for fixed and random coordinates
     # (random_effect.resolve_re_optimizer). Explicit: "lbfgs" |
-    # "tron" (fixed only) | "owlqn", plus "newton" (random only)
+    # "tron" | "owlqn", plus "newton" (random only)
     optimizer: str = "auto"
     max_iters: int = 100
     tolerance: float = 1e-8

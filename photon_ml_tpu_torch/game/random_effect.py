@@ -8,9 +8,11 @@ every objective pass is a batched contraction over that block, and the
 solvers are either the batched dense Newton method (:func:`_newton_dense_
 solver`: gradient and Hessian by ``einsum``, ``torch.linalg.cholesky_ex`` and
 ``cholesky_solve``, a 4-level per-entity step-halving safeguard) or the
-batched L-BFGS / OWL-QN of ``optimize/batched.py``. Normalization folds into
-the block as ``x' = (x - s) * f`` per local slot, exactly the sparse path's
-effective-coefficient fold.
+batched L-BFGS / OWL-QN / TRON of ``optimize/batched.py`` (TRON's
+Hessian-vector product is the explicit ``X^T diag(d2) X v + l2 v`` over the
+block, where the JAX package differentiates the gradient forward).
+Normalization folds into the block as ``x' = (x - s) * f`` per local slot,
+exactly the sparse path's effective-coefficient fold.
 
 Nothing on this path accumulates with atomics: the densify is an ordered
 masked add, every reduction runs over a fixed axis, and scoring writes each
@@ -43,7 +45,7 @@ from photon_ml_tpu_torch.optimize import batched
 from photon_ml_tpu_torch.optimize.common import OptimizerConfig
 from photon_ml_tpu_torch.types import resolve_device
 
-RE_OPTIMIZERS = ("lbfgs", "owlqn", "newton")
+RE_OPTIMIZERS = ("lbfgs", "owlqn", "tron", "newton")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +107,18 @@ class _BucketObjective:
         d1 = apply_weights(self.weights, self.loss.d1(m, self.labels))
         f = torch.sum(per, dim=1) + 0.5 * self.l2 * torch.sum(W * W, dim=1)
         return f, torch.einsum("end,en->ed", self.X, d1) + self.l2 * W
+
+    def hvp(self, W):
+        """The Hessian-vector product at ``W`` as an operator
+        ``V -> X^T diag(d2) X V + l2 V`` [E, D]: the curvature is taken
+        once, each product is two contractions over the block."""
+        d2 = self.curvature(W)
+
+        def apply(V):
+            xv = torch.einsum("end,ed->en", self.X, V)
+            return torch.einsum("end,en->ed", self.X, d2 * xv) + self.l2 * V
+
+        return apply
 
     def curvature(self, W):
         return apply_weights(self.weights,
@@ -241,7 +255,8 @@ def _solver_for_bucket(local_dim: int, task: str, optimizer: str,
                        config: OptimizerConfig, compute_variance,
                        norm_mode: int = 0):
     """The bucket solve function for ``optimizer``: ``"newton"`` (batched
-    dense Newton), ``"lbfgs"`` or ``"owlqn"`` (``optimize/batched.py``).
+    dense Newton), ``"lbfgs"``, ``"owlqn"`` or ``"tron"``
+    (``optimize/batched.py``).
     ``norm_mode``: 0 none, 1 per-entity factors, 2 factors and shifts (the
     intercept slot pre-pinned to 1/0)."""
     if optimizer == "newton":
@@ -256,6 +271,8 @@ def _solver_for_bucket(local_dim: int, task: str, optimizer: str,
         if optimizer == "owlqn":
             res = batched.owlqn(obj.value_and_grad, w0, l1, config,
                                 fun=obj.value)
+        elif optimizer == "tron":
+            res = batched.tron(obj.value_and_grad, w0, obj.hvp, config)
         else:
             res = batched.lbfgs(obj.value_and_grad, w0, config)
         var = _variances(obj, res.w, compute_variance)
@@ -265,10 +282,6 @@ def _solver_for_bucket(local_dim: int, task: str, optimizer: str,
 
 
 def _check_re_optimizer(optimizer: str) -> None:
-    if optimizer == "tron":
-        raise NotImplementedError(
-            "optimizer='tron' for a random-effect coordinate (a batched "
-            "TRON) is not ported yet: ROADMAP Queue 1 item 12b")
     if optimizer not in RE_OPTIMIZERS + ("auto",):
         raise ValueError(f"unknown random-effect optimizer {optimizer!r}; "
                          f"known: {('auto',) + RE_OPTIMIZERS}")
@@ -360,7 +373,10 @@ def _entity_bytes(N: int, D: int, k: int, optimizer: str, history: int,
     * L-BFGS / OWL-QN: the s and y histories, 2 m D, plus about 16 carried
       [D] vectors (w, g, the direction, the line search's trial point,
       gradient and best gradient, the two-loop temporaries);
-    * full variances on the L-BFGS path: 4 D^2.
+    * TRON: about 16 carried [D] vectors (w, g, the trial point and its
+      gradient, CG's s, r, d and H d and their updates) and the curvature
+      and ``X v`` rows of a Hessian-vector product, 2 N;
+    * full variances on the L-BFGS, OWL-QN and TRON paths: 4 D^2.
 
     E.g. chip_smoke.py phase 11's shape (N=64, D=32, k=8, float32):
     Newton 11,648 elements = 46,592 bytes per entity; a quarter of an
@@ -370,7 +386,7 @@ def _entity_bytes(N: int, D: int, k: int, optimizer: str, history: int,
     if optimizer == "newton":
         elems += 4 * D * D + 12 * D
     else:
-        elems += 2 * history * D + 16 * D
+        elems += 16 * D + (2 * N if optimizer == "tron" else 2 * history * D)
         if compute_variance == "full":
             elems += 4 * D * D
     return elems * itemsize

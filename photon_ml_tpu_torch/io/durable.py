@@ -1,0 +1,65 @@
+"""Durable atomic-rename commits: fsync the file AND its directory (a copy
+of ``photon_ml_tpu/io/durable.py`` without its ``durable.commit``
+fault-injection site, which comes with the port's fault injection, ROADMAP
+Queue 1 item 17, and without ``durable_dir_rename``, which only the model
+registry calls, item 19).
+
+Every commit point in the tree (resume markers, registry ``LATEST``,
+trace files, scoring outputs) uses the temp-file + ``os.replace`` idiom,
+which is atomic against CONCURRENT readers but not durable against power
+loss: POSIX only guarantees the rename reaches disk after the parent
+directory is fsynced, and the renamed file's CONTENT only after the file
+itself is fsynced. A rename-only commit can therefore surface after a
+crash as a present-but-empty (or half-written) "committed" file — the
+exact state the atomic idiom exists to rule out.
+
+:func:`durable_replace` closes the hole: fsync the temp file, then
+``os.replace``, then fsync the destination's parent directory.
+
+Directory fsync is best-effort on platforms that refuse it (Windows has
+no ``O_DIRECTORY``; some filesystems return EINVAL): the rename itself
+already happened, so degrading to the pre-fix guarantee there is strictly
+no worse than before.
+"""
+
+from __future__ import annotations
+
+import os
+
+__all__ = ["durable_replace", "fsync_file", "fsync_dir"]
+
+
+def fsync_file(path: str) -> None:
+    """fsync one file's content (open read-only, fsync, close)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def fsync_dir(path: str) -> None:
+    """Best-effort fsync of a DIRECTORY so a rename inside it is durable.
+    Platforms/filesystems that cannot fsync directories degrade to a
+    no-op (the rename still happened; durability falls back to the
+    filesystem's own ordering)."""
+    flags = os.O_RDONLY | getattr(os, "O_DIRECTORY", 0)
+    try:
+        fd = os.open(path, flags)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def durable_replace(tmp: str, dst: str) -> None:
+    """Atomically AND durably commit ``tmp`` over ``dst``: fsync the temp
+    file's content, rename, fsync the destination's parent directory."""
+    fsync_file(tmp)
+    os.replace(tmp, dst)
+    fsync_dir(os.path.dirname(os.path.abspath(dst)))
+

@@ -1,5 +1,5 @@
-"""Batched L-BFGS and OWL-QN over an entity axis: ``E`` independent small
-problems solved in lockstep (counterpart of the ``jax.vmap`` of a
+"""Batched L-BFGS, OWL-QN and TRON over an entity axis: ``E`` independent
+small problems solved in lockstep (counterpart of the ``jax.vmap`` of a
 ``lax.while_loop`` optimizer in ``photon_ml_tpu/game/random_effect.py``'s
 ``_solver_for_bucket``).
 
@@ -13,12 +13,13 @@ entity that has converged, stalled, or ended its line search keeps its state
 exactly. The nested line searches are batched the same way: each entity is
 in its own bracket or zoom phase (strong Wolfe) or its own backtracking
 step, both branches are evaluated under masks, and the search ends when no
-entity is still searching.
+entity is still searching. TRON's Steihaug CG loop is batched the same
+way, with its own per-entity ``active`` mask.
 
 The host reads the device once per outer iteration and once per
-line-search trial (``any`` of a mask), never once per entity. Per entity
-the iterates are those of the scalar ``optimize/lbfgs.py`` and
-``optimize/owlqn.py`` up to rounding.
+line-search trial or CG step (``any`` of a mask), never once per entity.
+Per entity the iterates are those of the scalar ``optimize/lbfgs.py``,
+``optimize/owlqn.py`` and ``optimize/tron.py`` up to rounding.
 
 ``fun_and_grad(W) -> (f [E], g [E, D])`` and ``fun(W) -> f [E]`` evaluate
 every entity's objective at once.
@@ -32,6 +33,9 @@ import torch
 
 from photon_ml_tpu_torch.optimize.common import (
     OptimizerConfig, converged_check, grad_converged,
+)
+from photon_ml_tpu_torch.optimize.tron import (
+    _ETA0, _ETA1, _ETA2, _SIGMA1, _SIGMA2, _SIGMA3,
 )
 
 _BRACKET, _ZOOM, _DONE = 0, 1, 2
@@ -394,3 +398,135 @@ def owlqn(fun_and_grad: Callable, w0: torch.Tensor, l1_weight,
         it = it + active.to(it.dtype)
         active = active & ~conv & ok & (it < config.max_iters)
     return BatchedResult(w, F, converged, it, syncs)
+
+
+def steihaug_cg(hvp: Callable, g, delta, cg_tol, max_cg: int, searching):
+    """Batched Steihaug CG (``optimize/tron.py::_steihaug_cg`` without a
+    preconditioner): each entity approximately minimizes
+    ``g.s + 0.5 s.H.s`` within its radius ``delta`` [E]; ``hvp(V) -> [E, D]``
+    applies every entity's Hessian at once. ``searching`` [E] marks the
+    entities that run at all. An entity stops at the trust-region boundary,
+    on negative curvature, once ``|r| <= cg_tol`` [E], or after ``max_cg``
+    steps; the others keep stepping. Returns ``(s, r, host_syncs)`` with the
+    residual ``r == -(g + H s)``."""
+    tiny = torch.finfo(g.dtype).tiny
+    one = torch.ones((), dtype=g.dtype, device=g.device)
+
+    def boundary_tau(s, d):
+        sd, dd, ss = _dot(s, d), _dot(d, d), _dot(s, s)
+        disc = torch.sqrt(torch.clamp(sd * sd + dd * (delta * delta - ss),
+                                      min=0.0))
+        return (-sd + disc) / torch.clamp(dd, min=tiny)
+
+    s = torch.zeros_like(g)
+    r = -g
+    d = r
+    rz = _dot(r, r)
+    i = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
+    running = searching.clone()
+    syncs = 0
+    while True:
+        syncs += 1
+        if not bool(running.any()):  # the step's one host read
+            break
+        Hd = hvp(d)
+        dHd = _dot(d, Hd)
+        neg_curv = dHd <= 0
+        alpha = rz / torch.where(neg_curv, one, dHd)
+        s_alpha = s + alpha[:, None] * d
+        hit = neg_curv | (_rows_norm(s_alpha) >= delta)
+        # one uniform update keeps r == -(g + H s) exact on the boundary
+        step = torch.where(hit, boundary_tau(s, d), alpha)
+        s_new = s + step[:, None] * d
+        r_new = r - step[:, None] * Hd
+        rz_new = _dot(r_new, r_new)
+        d_new = r_new + (rz_new / torch.clamp(rz, min=tiny))[:, None] * d
+        s = _sel(running, s_new, s)
+        r = _sel(running, r_new, r)
+        d = _sel(running, d_new, d)
+        rz = torch.where(running, rz_new, rz)
+        i = i + running.to(i.dtype)
+        done = hit | (_rows_norm(r_new) <= cg_tol)
+        running = running & ~done & (i < max_cg)
+    return s, r, syncs
+
+
+def tron(fun_and_grad: Callable, w0: torch.Tensor, hvp: Callable,
+         config: OptimizerConfig = OptimizerConfig()) -> BatchedResult:
+    """Minimize each entity's ``f_e(w_e)`` by trust-region Newton with a
+    Steihaug CG inner loop (per-entity rules of ``optimize/tron.py``,
+    unpreconditioned, as the JAX package's per-entity TRON runs).
+    ``hvp(W)`` returns the Hessian-vector product at ``W`` as an operator
+    ``V -> [E, D]`` (each entity's Hessian applied to its row of ``V``); it
+    is built once per outer iteration, so the curvature at ``W`` is paid
+    once, not once per CG step. CG runs at most ``max(D, 20)`` steps per
+    outer iteration to ``0.1 |g|``, as in the reference."""
+    E, D = w0.shape
+    dtype, dev = w0.dtype, w0.device
+    eps = torch.finfo(dtype).eps
+    max_cg = max(D, 20)
+    f, g = fun_and_grad(w0)
+    w = w0
+    g0_norm = _rows_norm(g)
+    delta = g0_norm
+    it = torch.zeros(E, dtype=torch.int32, device=dev)
+    converged = torch.zeros(E, dtype=torch.bool, device=dev)
+    active = torch.full((E,), config.max_iters > 0, dtype=torch.bool,
+                        device=dev)
+    sigma3 = torch.full((), _SIGMA3, dtype=dtype, device=dev)
+    one = torch.ones((), dtype=dtype, device=dev)
+    syncs = 0
+    while True:
+        syncs += 1
+        if not bool(active.any()):  # the iteration's one host read
+            break
+        step, r, cg_syncs = steihaug_cg(hvp(w), g, delta,
+                                        0.1 * _rows_norm(g), max_cg, active)
+        syncs += cg_syncs
+        w_try = w + step
+        f_try, g_try = fun_and_grad(w_try)
+        gs = _dot(g, step)
+        # r == -(g + H step), so prered = 0.5 * (r.s - g.s): no extra HVP
+        prered = 0.5 * (_dot(step, r) - gs)
+        actred = f - f_try
+        snorm = _rows_norm(step)
+        # Lin-More radius update via quadratic interpolation
+        denom = f_try - f - gs
+        alpha = torch.where(
+            denom <= 0, sigma3,
+            torch.clamp(-0.5 * (gs / torch.where(denom == 0, one, denom)),
+                        min=_SIGMA1))
+        a_snorm = alpha * snorm
+        delta_new = torch.where(
+            actred < _ETA0 * prered,
+            torch.minimum(torch.clamp(alpha, min=_SIGMA1) * snorm,
+                          _SIGMA2 * delta),
+            torch.where(
+                actred < _ETA1 * prered,
+                torch.maximum(_SIGMA1 * delta,
+                              torch.minimum(a_snorm, _SIGMA2 * delta)),
+                torch.where(
+                    actred < _ETA2 * prered,
+                    torch.maximum(_SIGMA1 * delta,
+                                  torch.minimum(a_snorm, _SIGMA3 * delta)),
+                    torch.maximum(delta,
+                                  torch.minimum(a_snorm, _SIGMA3 * delta)))))
+        accept = actred > _ETA0 * prered
+        w_new = _sel(accept, w_try, w)
+        f_new = torch.where(accept, f_try, f)
+        g_new = _sel(accept, g_try, g)
+        conv = accept & converged_check(f, f_new, _rows_norm(g_new), g0_norm,
+                                        config.tolerance)
+        # the quadratic model predicting no significant reduction IS
+        # convergence (nothing left to gain at this dtype's resolution)
+        conv = conv | (prered <= eps * torch.clamp(torch.abs(f), min=1.0))
+        # radius below step resolution at w: further steps can't move w
+        stalled = delta_new < eps * torch.clamp(_rows_norm(w_new), min=1.0)
+        w = _sel(active, w_new, w)
+        f = torch.where(active, f_new, f)
+        g = _sel(active, g_new, g)
+        delta = torch.where(active, delta_new, delta)
+        converged = torch.where(active, conv, converged)
+        it = it + active.to(it.dtype)
+        active = active & ~conv & ~stalled & (it < config.max_iters)
+    return BatchedResult(w, f, converged, it, syncs)

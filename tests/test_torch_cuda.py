@@ -305,3 +305,73 @@ def test_game_cd_on_card_matches_cpu(cuda):
                               again[name].buckets):
             assert _rel(bg.coefficients, bc.coefficients) < 1e-9
             assert np.array_equal(bg.coefficients, ba.coefficients)
+
+
+def test_game_drivers_on_card_match_cpu(cuda, tmp_path):
+    """The GAME training driver (a fixed coordinate, a per-user random one
+    by TRON, one Bayesian tuning round; tolerance 0 pins every solver's
+    iteration count) and the scoring driver on its best model, on the card
+    and on the CPU at f64: the tuned reg weights equal, every saved
+    coefficient within 1e-9 relative L2, the scores within 1e-9; the fixed
+    coordinate's fits launch the kernel."""
+    import json
+
+    from photon_ml_tpu_torch.cli import (
+        game_scoring_driver, game_training_driver,
+    )
+    from photon_ml_tpu_torch.io.avro import iter_avro_records
+    from photon_ml_tpu_torch.io.data_reader import write_training_examples
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+
+    r = np.random.default_rng(3)
+    n, dim = 1200, 64
+    x = (r.random((n, dim)) < 0.1) * r.normal(size=(n, dim))
+    users = r.integers(0, 40, n)
+    y = (r.random(n) < 1 / (1 + np.exp(-x @ r.normal(size=dim)))).astype(
+        float)
+    for name, rows in (("train", slice(0, 1000)), ("val", slice(1000, n))):
+        write_training_examples(
+            str(tmp_path / f"{name}.avro"),
+            ([(f"f{j}", "", float(x[i, j])) for j in np.nonzero(x[i])[0]]
+             for i in range(n)[rows]), y[rows],
+            entity_ids={"user": users[rows]})
+    coords = json.dumps([
+        {"name": "fixed", "reg_type": "l2", "reg_weight": 1.0,
+         "max_iters": 10, "tolerance": 0.0},
+        {"name": "per_user", "coordinate_type": "random",
+         "entity_column": "user", "optimizer": "tron", "reg_type": "l2",
+         "reg_weight": 1.0, "max_iters": 5, "tolerance": 0.0}])
+    out, scores, launched = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        before = multiply_prefix_sum.launches
+        assert game_training_driver.main([
+            "--train-data", str(tmp_path / "train.avro"),
+            "--validation-data", str(tmp_path / "val.avro"),
+            "--coordinates", coords, "--n-iterations", "2",
+            "--tuning-mode", "bayesian", "--tuning-iters", "1",
+            "--tuning-coordinates", "fixed", "--dtype", "float64",
+            "--output-dir", str(tmp_path / f"t-{dev}"),
+            "--device", dev]) == 0
+        launched[dev] = multiply_prefix_sum.launches - before
+        out[dev] = tmp_path / f"t-{dev}"
+        assert game_scoring_driver.main([
+            "--data", str(tmp_path / "val.avro"), "--model-dir",
+            str(out[dev] / "best"), "--output-dir", str(tmp_path / f"s-{dev}"),
+            "--dtype", "float64", "--device", dev]) == 0
+        scores[dev] = np.array([
+            rec["predictionScore"] for rec in iter_avro_records(
+                str(tmp_path / f"s-{dev}" / "scores.avro"))])
+    assert launched["cuda"] > 0
+    tuned = {}
+    for dev in out:
+        with open(out[dev] / "photon.log.jsonl") as f:
+            tuned[dev] = [json.loads(line)["reg_weights"] for line in f
+                          if '"tuning_round"' in line]
+    assert tuned["cuda"] == tuned["cpu"] and len(tuned["cpu"]) == 1
+    card = load_game_model(str(out["cuda"] / "best"), device="cpu")
+    cpu = load_game_model(str(out["cpu"] / "best"), device="cpu")
+    assert _rel(card["fixed"].model.coefficients.means,
+                cpu["fixed"].model.coefficients.means) < 1e-9
+    for bg, bc in zip(card["per_user"].buckets, cpu["per_user"].buckets):
+        assert _rel(bg.coefficients, bc.coefficients) < 1e-9
+    assert np.max(np.abs(scores["cuda"] - scores["cpu"])) <= 1e-9

@@ -26,6 +26,7 @@ from photon_ml_tpu_torch.estimators import GameEstimator, GameTransformer
 from photon_ml_tpu_torch.game.descent import (
     CoordinateConfig, CoordinateDescent, GameDataset, make_game_dataset,
 )
+from photon_ml_tpu_torch.game.random_effect import train_random_effect
 from photon_ml_tpu_torch.game.sampling import down_sample
 from photon_ml_tpu_torch.game.scoring import score_game_model
 from photon_ml_tpu_torch.interop import (
@@ -96,6 +97,7 @@ def _runs(data, name):
             "mixed": (dict(tolerance=1e-6), 4, ["auc", "logistic_loss"]),
             "owlqn": (dict(optimizer="lbfgs", reg_type="elastic_net",
                            elastic_net_alpha=0.5), 2, ["auc"]),
+            "tron": (dict(optimizer="tron", tolerance=1e-8), 3, ["auc"]),
         }[name]
         (jt, jv), (pt, pv) = data["jax"], data["port"]
         j = JaxCD(_configs(JaxConfig, **kw), task="logistic",
@@ -116,7 +118,7 @@ def _fixed_w(model):
     return np.asarray(model.coordinates["fixed"].model.coefficients.means)
 
 
-@pytest.mark.parametrize("name", ["fixed", "mixed", "owlqn"])
+@pytest.mark.parametrize("name", ["fixed", "mixed", "owlqn", "tron"])
 def test_coordinate_descent_matches_jax(data, name):
     (jm, jh), (pm, ph) = _runs(data, name)
     assert _rel(_fixed_w(pm), _fixed_w(jm)) <= TOL
@@ -290,9 +292,8 @@ def test_score_game_model_matches_jax(data):
 
 @pytest.mark.parametrize("make, item", [
     (lambda: CoordinateConfig("f", streaming=True), "item 16"),
-    (lambda: CoordinateConfig("r", coordinate_type="random",
-                              entity_column="u", optimizer="tron"),
-     "item 12b"),
+    (lambda: train_random_effect(None, np.zeros(1), mesh=object(),
+                                 device="cpu"), "item 15"),
     (lambda: CoordinateDescent([], mesh=object(), device="cpu"), "item 15"),
     (lambda: CoordinateDescent([], entity_shard=object(), device="cpu"),
      "item 17"),

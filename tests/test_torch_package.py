@@ -60,7 +60,11 @@ def test_every_module_is_checked():
                    "native/__init__", "ops/statistics", "diagnostics",
                    "cli/glm_driver", "optimize/path", "optimize/batched",
                    "game/random_effect", "game/descent", "game/scoring",
-                   "game/sampling", "estimators"):
+                   "game/sampling", "estimators", "tuning/__init__",
+                   "tuning/gp", "tuning/search", "tuning/game_tuner",
+                   "io/durable", "cli/feature_indexing_driver",
+                   "cli/game_training_driver", "cli/game_scoring_driver",
+                   "cli/_common"):
         assert f"photon_ml_tpu_torch/{module}.py" in names, module
 
 
@@ -150,6 +154,46 @@ def _game_entry(name):
     return run
 
 
+def _game_driver(name):
+    """The GAME training or scoring driver on a 40-row Avro fixture of 4
+    users (the scoring driver scores a model trained on the CPU)."""
+    def run(device):
+        import json
+        import tempfile
+
+        from photon_ml_tpu_torch.cli import (
+            game_scoring_driver, game_training_driver,
+        )
+        from photon_ml_tpu_torch.io.data_reader import (
+            write_training_examples,
+        )
+
+        dev = [] if device is None else ["--device", device]
+        r = np.random.default_rng(0)
+        with tempfile.TemporaryDirectory() as root:
+            data = f"{root}/train.avro"
+            write_training_examples(
+                data, ([(f"f{j}", "", float(v)) for j, v in enumerate(row)]
+                       for row in r.normal(size=(40, 3))),
+                (r.random(40) < 0.5).astype(float),
+                entity_ids={"user": np.arange(40) % 4})
+            coords = json.dumps([
+                {"name": "fixed", "max_iters": 2},
+                {"name": "per_user", "coordinate_type": "random",
+                 "entity_column": "user", "max_iters": 2}])
+            train = ["--train-data", data, "--coordinates", coords]
+            if name == "game_training_driver":
+                return game_training_driver.main(
+                    train + ["--output-dir", f"{root}/t", *dev])
+            game_training_driver.main(train + ["--output-dir", f"{root}/t",
+                                               "--device", "cpu"])
+            return game_scoring_driver.main(
+                ["--data", data, "--model-dir", f"{root}/t/best",
+                 "--output-dir", f"{root}/s", *dev])
+
+    return run
+
+
 ENTRY_POINTS = {
     "make_batch": lambda device: types.make_batch(
         np.ones((2, 3)), np.ones(2), device=device),
@@ -191,6 +235,8 @@ ENTRY_POINTS = {
         "train_random_effect", "score_random_effect", "CoordinateDescent",
         "GameEstimator", "GameTransformer", "GlmPathEstimator",
         "score_game_model")},
+    **{name: _game_driver(name) for name in (
+        "game_training_driver", "game_scoring_driver")},
 }
 
 

@@ -1,6 +1,7 @@
 """The port's random-effect solvers and scoring
 (``photon_ml_tpu_torch/game/random_effect.py``, ``optimize/batched.py``)
-against the JAX package's, at float64 on the CPU.
+against the JAX package's, at float64 on the CPU. The TRON cases hold the
+batched TRON to ``jax.vmap`` of the JAX package's scalar TRON.
 
 One dataset of 40 entities in 2 size buckets whose entities converge at
 different iterations; each JAX reference runs once per module.
@@ -73,6 +74,8 @@ CASES = {
     "lbfgs_factors": ("lbfgs", 0.0, "diagonal", "factors", 1e-9),
     "owlqn": ("owlqn", 0.3, False, None, 1e-9),
     "newton_shift": ("newton", 0.0, "diagonal", "shift", 1e-7),
+    "tron": ("tron", 0.0, "diagonal", None, 1e-9),
+    "tron_shift_full": ("tron", 0.0, "full", "shift", 1e-9),
 }
 _FITS = {}
 
@@ -139,7 +142,7 @@ def test_blocked_matches_unblocked_bit_for_bit(data, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("optimizer", ["newton", "lbfgs"])
+@pytest.mark.parametrize("optimizer", ["newton", "lbfgs", "tron"])
 def test_active_set_carries_frozen_entities(data, optimizer):
     """A partial solve re-solves only the masked entities (in a padded
     sub-bucket): they match the full warm re-solve bit for bit, the frozen
@@ -210,9 +213,6 @@ def test_score_random_effect_matches_jax(data):
 
 
 def test_deferred_and_unknown_optimizers_raise(data):
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        train_random_effect(data["port"], data["offs"], optimizer="tron",
-                            device="cpu")
     with pytest.raises(ValueError, match="unknown random-effect optimizer"):
         train_random_effect(data["port"], data["offs"], optimizer="sgd",
                             device="cpu")
@@ -262,6 +262,51 @@ def test_batched_lbfgs_matches_scalar_runs():
             assert int(res.iterations[e]) == s.iterations, name
             assert bool(res.converged[e]) == s.converged, name
             assert _rel(res.w[e], s.w) <= 1e-9, name
+
+
+def test_batched_tron_matches_scalar_runs():
+    """The batched TRON gives each entity the scalar TRON's iterates
+    (``optimize/tron.py``, unpreconditioned) up to rounding, with the
+    scalar iteration counts, on problems conditioned differently."""
+    from photon_ml_tpu_torch.optimize.tron import tron
+
+    r = np.random.default_rng(5)
+    A = torch.from_numpy(r.normal(size=(5, 30, 6)))
+    y = torch.from_numpy((r.random((5, 30)) < 0.5).astype(float))
+    scale = torch.from_numpy(np.geomspace(0.05, 20.0, 5))
+
+    def fg(W):  # per-entity logistic loss plus 0.1 |w|^2 / 2
+        m = torch.einsum("end,ed->en", A, W) * scale[:, None]
+        f = torch.sum(torch.nn.functional.softplus(m) - y * m, 1) \
+            + 0.05 * torch.sum(W * W, 1)
+        d1 = (torch.sigmoid(m) - y) * scale[:, None]
+        return f, torch.einsum("end,en->ed", A, d1) + 0.1 * W
+
+    def hvp(W):
+        m = torch.einsum("end,ed->en", A, W) * scale[:, None]
+        d2 = torch.sigmoid(m) * (1 - torch.sigmoid(m)) * scale[:, None] ** 2
+        return lambda V: torch.einsum(
+            "end,en->ed", A, d2 * torch.einsum("end,ed->en", A, V)) + 0.1 * V
+
+    cfg = OptimizerConfig(max_iters=40, tolerance=1e-10)
+    W0 = torch.zeros(5, 6, dtype=torch.float64)
+    res = batched.tron(fg, W0, hvp, cfg)
+    iters = set()
+    for e in range(5):
+        s = tron(lambda w: _one(fg, e, w), W0[e], cfg,
+                 hvp=lambda w, v: _one_hvp(hvp, e, w, v))
+        assert int(res.iterations[e]) == s.iterations
+        assert bool(res.converged[e]) == s.converged
+        assert _rel(res.w[e], s.w) <= 1e-9
+        iters.add(s.iterations)
+    assert len(iters) > 1
+
+
+def _one_hvp(hvp, e, w, v):
+    W = torch.zeros(5, w.shape[0], dtype=w.dtype)
+    V = torch.zeros_like(W)
+    W[e], V[e] = w, v
+    return hvp(W)(V)[e]
 
 
 def _one(fg, e, w):
