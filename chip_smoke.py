@@ -94,20 +94,59 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     the intercept the driver adds) with ``user`` and ``item`` in
     ``metadataMap``, by 10 spawn workers; ``feature_indexing_driver.main``
     builds the index map; ``game_training_driver.main`` trains phase 12's
-    coordinates (``per_item`` by the batched TRON) for 3 sweeps, then 2
-    Bayesian tuning rounds of the fixed coordinate's reg weight, and saves
+    coordinates (``per_item`` by the batched TRON) for 3 sweeps, then one
+    Bayesian tuning round of the fixed coordinate's reg weight (two until
+    phases 14-16 were added; cut to keep the script near 500 s), and saves
     ``best``; ``game_scoring_driver.main`` scores the validation files with
     the saved model. It prints each driver stage's seconds, the host
     bucket builds, each sweep's seconds per coordinate and each fixed fit's
-    launches. Gates: every fixed fit launches the kernel; two tuning rounds
+    launches. Gates: every fixed fit launches the kernel; the tuning round
     logged; the scoring driver's scores of the reloaded ``best`` within
     1e-5 of the training run's final validation scores of the selected
     configuration, and its AUC within 1e-6 of ``driver_done``'s.
 
+14. the streamed main path (``parallel.streaming.fit_streaming``), run
+    after phase 8: phase 5's rows as numpy on the host, cut by
+    ``make_host_chunks`` into 32 chunks of 2^16 rows (9.98 MB of indices
+    each), prefetch depth 2, fed to the card through the pinned ring.
+    Gates: (a) one streamed gradient pass at w = 0 and at phase 5's final
+    w against the in-memory kernel pass on the whole batch, f within 1e-6
+    relative and ``|g - g_mem| <= 1e-5 |g_mem(w = 0)|``; (b) the L-BFGS
+    (margin, 20 iterations), TRON (10) and OWL-QN (l1 = 10, 20) fits
+    through ``"csc_kernel"`` each within 1e-3 relative L2 of the same fit
+    through plain ``"csc"`` (the in-memory gate of phases 5-7; it prints
+    whether the two are bit-identical: the kernel and ``torch.cumsum`` sum
+    a tile's float64 prefix in different orders, which shows where a
+    prefix is inexact); (c) L-BFGS at depth 0 equal to depth 2 bit for
+    bit; (d) kernel launches = 32 x the fit's gradient, Hessian-vector and
+    diagonal passes; (e) at n = 2^15, d = 2^14, the streamed and the
+    in-memory L-BFGS, both 100 iterations at tolerance 0 in float32 (the
+    float32 floor), within 1e-3 relative L2 of ``w``. It prints each fit's
+    seconds and seconds per pass, ``StreamStats``, the host-to-device rate,
+    host reads per pass, and per chunk the kernel's, the plain version's,
+    ``torch.cumsum``'s, the CSC sort's, the boundary combine's and a pinned
+    copy's ms beside the chunk's bound (2,555,904 nonzeros x 12 B);
+15. the GLM driver out of core, run inside phase 9's temporary directory
+    on its files: lambda 1.0, 200 iterations at the driver's default
+    tolerance 1e-7 (the streamed and the in-memory L-BFGS search their
+    lines differently, so only fits near the optimum are comparable),
+    chunks of 2^14 rows, four runs: in memory, ``--streaming``, then
+    ``--out-of-core --chunk-cache-dir`` twice (cold, warm). Gates: the
+    warm run's model files equal the cold run's byte for byte; the
+    out-of-core ``w`` within 1e-5 relative L2 of the ``--streaming`` one;
+    every streamed run's AUC within 1e-3 of the in-memory run's, and
+    every run launches the kernel. It prints each stage's seconds,
+    the peak-RSS growth beside the ring's bound, and the with-values
+    kernel per chunk (655,360 nonzeros x 16 B);
+16. GAME with the fixed coordinate streamed, run after phase 13: phase
+    12's data and coordinates, the fixed coordinate in chunks of 2^15 rows,
+    one sweep through ``GameEstimator.fit`` sharing phase 12's
+    random-effect buckets. Gates: kernel launches = 4 chunks x the fixed
+    fit's passes, and the AUC within 1e-3 of phase 12's first sweep.
+
 Each fit's launch count is set to 0 just before it and read just after
-(for phases 9 and 13: before and after the training driver's run; for
-phases 10 and 12: before and after each of the four walks and the
-estimator's fit).
+(for phases 9, 13 and 15: before and after each driver run; for phases 10
+and 12: before and after each of the four walks and the estimator's fit).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -158,9 +197,24 @@ GAME_ROWS, GAME_VAL_ROWS, GAME_DIM = 1 << 17, 1 << 15, 1 << 16
 GAME_USERS, GAME_ITEMS, GAME_SWEEPS = 100_000, 10_000, 3
 TOL_SCORE = 1e-5  # max |diff| of two scorings of the validation rows
 # phase 13, the GAME drivers at phase 12's shape: Avro files of 2^14 rows,
-# 2 Bayesian tuning rounds after the one grid point
-GAME_FILE_ROWS, GAME_TUNING_ROUNDS = 1 << 14, 2
+# one Bayesian tuning round after the one grid point
+GAME_FILE_ROWS, GAME_TUNING_ROUNDS = 1 << 14, 1
 TOL_DRIVER_AUC = 1e-6  # the scoring driver's auc against driver_done's
+# phase 14, the streamed main path: chunks of 2^16 rows (32 chunks),
+# prefetch depth 2; gate (a) on f relative and on g scaled by |g_mem(w=0)|
+STREAM_CHUNK_ROWS, STREAM_DEPTH = 1 << 16, 2
+TOL_STREAM_F, TOL_STREAM_G = 1e-6, 1e-5
+STREAM_CONV_ITERS = 100  # gate (e): both fits to the float32 floor
+# phase 15, the GLM driver out of core on phase 9's files: 8 chunks, lambda
+# 1.0, 200 iterations at the driver's default tolerance (1e-7): near the
+# optimum, where the in-memory and the streamed L-BFGS (their line searches
+# differ) agree
+OOC_CHUNK_ROWS, OOC_ITERS, OOC_TOL = 1 << 14, 200, 1e-7
+TOL_OOC_W = 1e-5  # out-of-core against --streaming, rel L2 of w
+TOL_OOC_AUC = 1e-3  # each streamed run's auc against the in-memory run's
+# phase 16, GAME with the fixed coordinate streamed: chunks of 2^15 rows
+GAME_STREAM_CHUNK_ROWS = 1 << 15
+TOL_GAME_STREAM_AUC = 1e-3  # against phase 12's first-sweep auc
 # peak device-memory rate, float32 and float64 (non-tensor-core) rates, by
 # card (NVIDIA data sheets, SXM parts)
 PEAKS = {"H200": (4.8e12, 67e12, 34e12), "H100": (3.35e12, 67e12, 34e12)}
@@ -596,10 +650,13 @@ class _RecordingEvaluator:
 
 
 def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
-                 n_files=DRIVER_FILES, n_val_files=DRIVER_VAL_FILES):
-    """The GLM driver end to end on a written Avro dataset (phase 9).
-    Returns (kernel launches in the driver's run, the kernel's with-values
-    timing at this path's nnz)."""
+                 n_files=DRIVER_FILES, n_val_files=DRIVER_VAL_FILES,
+                 then=None):
+    """The GLM driver end to end on a written Avro dataset (phase 9), then
+    ``then(root, train_dir, val_dir)`` (phase 15) on the same files
+    before they are removed. Returns (kernel launches in the driver's run,
+    the kernel's with-values timing at this path's nnz, what ``then``
+    returned)."""
     import os
     import tempfile
 
@@ -718,6 +775,9 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
                 f"|diff| {np.abs(rescored - scored[best_i]).max():.3e}")
         print(f"  best/ reloaded with load_game_model: its {n_val} validation "
               "scores equal the run's bit for bit")
+        after = None
+        if then is not None:
+            after = then(root, train_dir, val_dir)
     nnz = int(batch.features.indices.numel())
     timing = time_scan(nnz, gen, dev, peaks, with_values=True)
     print(f"multiply_prefix_sum at the driver's nnz={nnz} (explicit values, "
@@ -726,7 +786,7 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
           f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
           f"({timing['bytes'] / 1e6:.1f} MB by {timing['bound_by']}) on "
           f"{smi}")
-    return launches, dict(timing, nnz=nnz)
+    return launches, dict(timing, nnz=nnz), after
 
 
 def path_walks(obj, reg, batch, csc, config, grid=None):
@@ -1078,7 +1138,9 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
     scripts/bench_game.py's CD shape, with validation AUC; the fixed
     coordinate's first fit against the plain "csc" path and
     GameTransformer against CD's own validation scores (phase 13 saves and
-    reloads the model through the drivers)."""
+    reloads the model through the drivers). Returns (kernel launches, what
+    phase 16 reuses: the data, the bucket cache and the first sweep's
+    AUC)."""
     from photon_ml_tpu_torch.estimators import GameEstimator, GameTransformer
     from photon_ml_tpu_torch.game import descent
     from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
@@ -1177,6 +1239,48 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
     if not (np.isfinite(scores).all() and scores.shape == (n_val,)
             and diff <= TOL_SCORE):
         raise RuntimeError(f"GameTransformer scores differ: {diff:.3e}")
+    auc0 = [rec["auc"] for rec in result.history if rec["iteration"] == 0][-1]
+    return launches, dict(train=train, val=val, cache=cache, auc0=auc0)
+
+
+def phase_game_stream(ctx, dev, smi):
+    """Phase 16: phase 12's data and coordinates with the fixed coordinate
+    streamed (chunks of GAME_STREAM_CHUNK_ROWS rows), one sweep, sharing
+    phase 12's random-effect buckets. Returns the kernel launches."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    configs = game_configs()
+    configs[0] = dataclasses.replace(configs[0], streaming=True,
+                                     chunk_rows=GAME_STREAM_CHUNK_ROWS)
+    est = GameEstimator(task="logistic", n_iterations=1, evaluators=["auc"],
+                        device=dev)
+    torch.cuda.synchronize()
+    multiply_prefix_sum.launches = 0
+    t0 = time.perf_counter()
+    result = est.fit(ctx["train"], ctx["val"], [configs],
+                     dataset_cache=ctx["cache"])[0]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = multiply_prefix_sum.launches
+    auc = result.history[-1]["auc"]
+    fixed = next(r for r in result.history if r["coordinate"] == "fixed")
+    st = fixed["stream"]
+    n_chunks = -(-ctx["train"].num_samples // GAME_STREAM_CHUNK_ROWS)
+    print(f"game fit, streamed fixed coordinate: 1 sweep in {seconds:.3f} "
+          f"s, {launches} launches ({st['kernel_passes']} kernel passes of "
+          f"{n_chunks} chunks), fixed {fixed['seconds']:.4f} s (decode_s "
+          f"{st['decode_s']:.4f}, transfer_s {st['transfer_s']:.4f}, "
+          f"stall_s {st['stall_s']:.4f}); auc {auc:.6f} vs phase 12's first "
+          f"sweep {ctx['auc0']:.6f} (tol {TOL_GAME_STREAM_AUC}), on {smi}")
+    if launches != n_chunks * st["kernel_passes"] or launches < 1:
+        raise RuntimeError(f"streamed fixed coordinate: {launches} launches "
+                           f"for {st['kernel_passes']} passes of {n_chunks} "
+                           "chunks")
+    if not abs(auc - ctx["auc0"]) <= TOL_GAME_STREAM_AUC:
+        raise RuntimeError(f"streamed GAME auc {auc} vs {ctx['auc0']}")
     return launches
 
 
@@ -1448,6 +1552,298 @@ def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
     return launches, dict(timing, nnz=nnz)
 
 
+def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
+    """Phase 14: the streamed main path at full width. Returns (kernel
+    launches by fit, the per-chunk timing entry)."""
+    from photon_ml_tpu_torch.game.data import HostSparse
+    from photon_ml_tpu_torch.ops.kernels import TILE, multiply_prefix_sum
+    from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+    from photon_ml_tpu_torch.parallel.data_parallel import (
+        fit_distributed, make_csc_path,
+    )
+    from photon_ml_tpu_torch.parallel.streaming import (
+        StreamStats, fit_streaming, make_host_chunks,
+        streaming_value_and_grad,
+    )
+    from photon_ml_tpu_torch.types import (
+        SparseFeatures, blocked_boundary_combine, build_csc_transpose,
+        make_batch,
+    )
+
+    t0 = time.perf_counter()
+    chunks, _ = make_host_chunks(
+        HostSparse(indices.cpu().numpy(), None, DIM), labels.cpu().numpy(),
+        chunk_rows=STREAM_CHUNK_ROWS)
+    nnz = STREAM_CHUNK_ROWS * K
+    print(f"stream chunks: {len(chunks)} of {STREAM_CHUNK_ROWS} rows "
+          f"({chunks[0].indices.nbytes / 1e6:.2f} MB of indices each, "
+          f"{nnz} implicit-ones nonzeros), made on the host in "
+          f"{time.perf_counter() - t0:.2f} s; prefetch depth {STREAM_DEPTH}")
+
+    # (a) one streamed gradient pass against the in-memory kernel pass
+    _, fg_mem, _ = make_csc_path(obj, use_kernel=True)
+    fg = streaming_value_and_grad(obj, chunks, DIM,
+                                  prefetch_depth=STREAM_DEPTH,
+                                  stats=StreamStats(), device=dev)
+    g0_norm = None
+    for label, w in (("w = 0", torch.zeros(DIM, device=dev)),
+                     ("phase 5's w", w5)):
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t0 = time.perf_counter()
+        f_s, g_s = fg(w, 1.0)
+        f_s = float(f_s)
+        sec = time.perf_counter() - t0
+        launches = multiply_prefix_sum.launches
+        f_m, g_m = fg_mem(w, batch, csc, 1.0)
+        if g0_norm is None:
+            g0_norm = float(g_m.norm())
+        rel_f = abs(f_s - float(f_m)) / abs(float(f_m))
+        g_err = float((g_s - g_m).norm()) / g0_norm
+        print(f"  streamed fg at {label}: {sec:.4f} s, {launches} launches; "
+              f"|f - f_mem| / |f_mem| = {rel_f:.3e} (tol {TOL_STREAM_F}), "
+              f"|g - g_mem| / |g_mem(0)| = {g_err:.3e} (tol {TOL_STREAM_G})")
+        if not (rel_f <= TOL_STREAM_F and g_err <= TOL_STREAM_G):
+            raise RuntimeError(f"streamed fg at {label} disagrees with the "
+                               "in-memory pass")
+        if launches != len(chunks):
+            raise RuntimeError(f"streamed fg launched {launches} times for "
+                               f"{len(chunks)} chunks")
+
+    fits = {
+        "stream_lbfgs_margin": dict(optimizer="lbfgs", config=OptimizerConfig(
+            max_iters=ITERS, tolerance=0.0)),
+        "stream_tron": dict(optimizer="tron", config=OptimizerConfig(
+            max_iters=TRON_ITERS, tolerance=0.0)),
+        "stream_owlqn": dict(optimizer="owlqn", l1=L1, config=OptimizerConfig(
+            max_iters=ITERS, tolerance=0.0)),
+    }
+    f0 = N_ROWS * math.log(2.0)
+    launches_by_fit, runs = {}, {}
+    for name, kw in fits.items():
+        def run(mode, depth=STREAM_DEPTH, kw=kw):
+            return fit_streaming(obj, chunks, DIM,
+                                 torch.zeros(DIM, device=dev), l2=1.0,
+                                 prefetch_depth=depth, sparse_grad=mode,
+                                 device=dev, **kw)
+
+        res, sec, launches = run_counted(lambda: run("csc_kernel"))
+        st = res.stream_stats
+        print(f"fit {name} (streamed, csc_kernel): {res.iterations} "
+              f"iterations, {st['kernel_passes']} kernel passes of "
+              f"{st['passes']} passes, {launches} launches, {sec:.3f} s "
+              f"({sec / st['passes'] * 1e3:.2f} ms per pass), objective "
+              f"{float(res.value):.4f}, on {smi}")
+        print(f"  StreamStats: decode_s {st['decode_s']:.4f}, transfer_s "
+              f"{st['transfer_s']:.4f}, stall_s {st['stall_s']:.4f}; "
+              f"{st['h2d_bytes'] / 1e9:.3f} GB to the card, "
+              f"{st['h2d_bytes'] / 1e9 / max(st['transfer_s'], 1e-9):.2f} "
+              f"GB/s over the transfer thread's seconds, "
+              f"{st['h2d_bytes'] / 1e9 / sec:.2f} GB/s over the fit; "
+              f"{st['host_reads'] / st['passes']:.2f} host reads per pass")
+        check_descent(name, res, DIM, f0)
+        # (d) one launch per chunk of every gradient, HVP and diagonal pass
+        if launches != len(chunks) * st["kernel_passes"]:
+            raise RuntimeError(f"{name}: {launches} launches, not "
+                               f"{len(chunks)} x {st['kernel_passes']}")
+        # (b) the kernel fit against the plain "csc" fit, as phases 5-7
+        # hold the in-memory fits: the two scan each tile's float64 prefix
+        # in different orders, so where a prefix is inexact a column sum
+        # can round to another float32
+        t0 = time.perf_counter()
+        plain = run("csc")
+        float(plain.value)
+        print(f"  plain csc streamed fit: {time.perf_counter() - t0:.3f} s, "
+              f"bit-identical: {torch.equal(res.w, plain.w)}")
+        check_plain(name, res, plain)
+        launches_by_fit[name] = launches
+        runs[name] = (res, run)
+
+    # (c) prefetch depth 0 against depth 2, bit for bit
+    res2, run = runs["stream_lbfgs_margin"]
+    t0 = time.perf_counter()
+    res0 = run("csc_kernel", depth=0)
+    float(res0.value)
+    st0 = res0.stream_stats
+    print(f"  lbfgs at prefetch depth 0: {time.perf_counter() - t0:.3f} s "
+          f"(stall_s {st0['stall_s']:.4f}, transfer_s "
+          f"{st0['transfer_s']:.4f}); equal to depth {STREAM_DEPTH}: "
+          f"{torch.equal(res0.w, res2.w)}")
+    if not torch.equal(res0.w, res2.w):
+        raise RuntimeError("streamed lbfgs depends on the prefetch depth: "
+                           f"{rel_l2(res0.w, res2.w):.3e}")
+
+    # (e) at the CPU-check shape, streamed and in-memory L-BFGS both run
+    # to convergence in float32: tolerance 0 and enough iterations to
+    # reach the float32 floor (a relative-loss stop leaves w 1e-3 apart)
+    idx_s, y_s = make_data(N_SMALL, DIM_SMALL, K, gen, dev)
+    small = make_batch(SparseFeatures(idx_s, None, DIM_SMALL), y_s,
+                       device=dev)
+    cfg = OptimizerConfig(max_iters=STREAM_CONV_ITERS, tolerance=0.0)
+    w0 = torch.zeros(DIM_SMALL, device=dev)
+    mem = fit_distributed(obj, small, w0, l2=1.0, config=cfg)
+    small_chunks, _ = make_host_chunks(
+        HostSparse(idx_s.cpu().numpy(), None, DIM_SMALL), y_s.cpu().numpy(),
+        chunk_rows=N_SMALL // 8)
+    st_small = fit_streaming(obj, small_chunks, DIM_SMALL, w0, l2=1.0,
+                             config=cfg, device=dev)
+    rel = rel_l2(st_small.w, mem.w)
+    g_norms = [float(r.grad_norm) for r in (st_small, mem)]
+    print(f"  n={N_SMALL}, d={DIM_SMALL} to convergence in float32: "
+          f"streamed {st_small.iterations} iterations (|g| {g_norms[0]:.3e}), "
+          f"in-memory {mem.iterations} (|g| {g_norms[1]:.3e}); rel L2 of w "
+          f"{rel:.3e} (tol {TOL_FIT})")
+    if not rel <= TOL_FIT:
+        raise RuntimeError(f"streamed and in-memory fits disagree: {rel:.3e}")
+
+    # per chunk: the kernel, the CSC sort and the boundary combine
+    timing = time_scan(nnz, gen, dev, peaks)
+    idx_c = torch.as_tensor(chunks[0].indices, device=dev)
+    sort_ms = cuda_ms(
+        lambda: build_csc_transpose(idx_c, None, DIM, with_cols=False), 20)
+    view = build_csc_transpose(idx_c, None, DIM, with_cols=False)
+    d = torch.randn(STREAM_CHUNK_ROWS, generator=gen, device=dev)
+    local, totals, _ = multiply_prefix_sum(None, d[view.rows])
+    combine_ms = cuda_ms(
+        lambda: blocked_boundary_combine(local, totals, view.col_starts,
+                                         TILE), 20)
+    pinned = torch.empty(chunks[0].indices.shape, dtype=torch.int32,
+                         pin_memory=True)
+    h2d_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 20)
+    print(f"per chunk (nnz={nnz}): kernel {timing['kernel_ms']:.4f} ms, "
+          f"plain {timing['plain_ms']:.4f} ms, torch.cumsum "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.5f} "
+          f"ms ({timing['bytes'] / 1e6:.2f} MB by {timing['bound_by']}); "
+          f"CSC sort {sort_ms:.4f} ms, boundary combine {combine_ms:.4f} ms; "
+          f"pinned indices copy {h2d_ms:.4f} ms "
+          f"({pinned.nbytes / 1e6 / h2d_ms:.2f} GB/s); on {smi}")
+    return launches_by_fit, dict(timing, nnz=nnz, sort_ms=sort_ms,
+                                 combine_ms=combine_ms, h2d_ms=h2d_ms)
+
+
+class _RssPeak:
+    """Samples this process's resident set every 5 ms on a thread;
+    ``peak`` is the largest sample, ``base`` the first."""
+
+    def __init__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="rss-sampler")
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(timeout=5)
+
+
+def phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks):
+    """Phase 15: the GLM driver in memory, with --streaming, then with
+    --out-of-core through a chunk cache (cold, then warm), on phase 9's
+    files. Returns (the cold out-of-core run's kernel launches, the
+    per-chunk timing entry)."""
+    import filecmp
+    import os
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    cache = os.path.join(root, "chunk_cache")
+    base = ["--train-data", train_dir, "--validation-data", val_dir,
+            "--input-format", "avro", "--hash-dim", str(DRIVER_HASH_DIM),
+            "--reg-weights", "1.0", "--optimizer", "lbfgs",
+            "--max-iters", str(OOC_ITERS), "--tolerance", str(OOC_TOL),
+            "--evaluators", "auc", "--device", str(dev),
+            "--chunk-rows", str(OOC_CHUNK_ROWS)]
+    runs = {"in_memory": [],
+            "streaming": ["--streaming"],
+            "ooc_cold": ["--out-of-core", "--chunk-cache-dir", cache],
+            "ooc_warm": ["--out-of-core", "--chunk-cache-dir", cache]}
+    chunk_mb = OOC_CHUNK_ROWS * (8 * (DRIVER_FEATURES + 1) + 12) / 1e6
+    out, launches_by_run, aucs = {}, {}, {}
+    for name, flags in runs.items():
+        out[name] = os.path.join(root, f"out_{name}")
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t0 = time.perf_counter()
+        with _RssPeak() as rss:
+            rc = glm_driver.main(base + flags + ["--output-dir", out[name]])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = multiply_prefix_sum.launches
+        if rc != 0:
+            raise RuntimeError(f"glm_driver {name} exited with {rc}")
+        with open(os.path.join(out[name], "photon.log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        print(f"glm_driver {name}: {seconds:.3f} s, {launches} launches, "
+              f"peak RSS +{(rss.peak - rss.base) / 1e6:.1f} MB (the ring's "
+              f"bound: {STREAM_DEPTH + 2} chunks of {chunk_mb:.2f} MB); on "
+              f"{smi}")
+        trained = next(e for e in log if e["event"] == "lambda_trained")
+        aucs[name] = auc = trained["metrics"]["auc"]
+        st = trained.get("stream")
+        print(f"  {trained['iterations']} iterations (converged "
+              f"{trained['converged']}), loss {trained['loss']:.4f}, auc "
+              f"{auc:.6f}" + ("" if st is None else
+                              f"; {st['kernel_passes']} kernel passes of "
+                              f"{st['passes']}, {st['chunks']} chunks, "
+                              f"decode_s {st['decode_s']:.3f}, transfer_s "
+                              f"{st['transfer_s']:.3f}, stall_s "
+                              f"{st['stall_s']:.3f}"))
+        for e in log:
+            if e["event"] == "stage_timing":
+                print(f"  stage {e['stage']}: {e['seconds']:.4f} s")
+        if launches < 1:
+            raise RuntimeError(f"glm_driver {name}: the kernel did not "
+                               "launch")
+        if not abs(auc - aucs["in_memory"]) <= TOL_OOC_AUC:
+            raise RuntimeError(f"glm_driver {name}: auc {auc} vs the "
+                               f"in-memory run's {aucs['in_memory']}")
+        launches_by_run[name] = launches
+
+    sub = os.path.join("best", "fixed-effect", "global")
+    cold, warm = (os.path.join(out[n], sub) for n in ("ooc_cold", "ooc_warm"))
+    names = sorted(os.listdir(cold))
+    match, mismatch, errors = filecmp.cmpfiles(cold, warm, names,
+                                               shallow=False)
+    if mismatch or errors or not match:
+        raise RuntimeError(f"warm and cold models differ: {mismatch} "
+                           f"{errors}")
+    w = {n: load_game_model(os.path.join(out[n], "best"), device=dev)[
+        "global"].model.coefficients.means for n in ("streaming", "ooc_cold")}
+    rel = rel_l2(w["ooc_cold"], w["streaming"])
+    print(f"  warm model files equal the cold run's byte for byte "
+          f"({', '.join(match)}); out-of-core vs --streaming w rel L2 "
+          f"{rel:.3e} (tol {TOL_OOC_W}); every auc within {TOL_OOC_AUC} of "
+          f"the in-memory run's ({aucs['in_memory']:.6f})")
+    if not rel <= TOL_OOC_W:
+        raise RuntimeError(f"out-of-core model differs: {rel:.3e}")
+    nnz = OOC_CHUNK_ROWS * (DRIVER_FEATURES + 1)
+    timing = time_scan(nnz, gen, dev, peaks, with_values=True)
+    print(f"per chunk (nnz={nnz}, values): kernel {timing['kernel_ms']:.4f} "
+          f"ms, plain {timing['plain_ms']:.4f} ms, torch.cumsum "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.5f} ms "
+          f"({timing['bytes'] / 1e6:.2f} MB by {timing['bound_by']}); on "
+          f"{smi}")
+    return launches_by_run["ooc_cold"], dict(timing, nnz=nnz)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1557,16 +1953,24 @@ def main() -> int:
             gen, dev, smi),
     }
     phase_auc(res.w, batch, smi)
-    launches_by_path["glm_driver"], driver_timing = phase_driver(
-        dev, smi, peaks, gen)
+    phase_stream_launches, stream_timing = phase_stream(
+        obj, indices, labels, batch, csc, res.w, smi, gen, dev, peaks)
+    launches_by_path.update(phase_stream_launches)
+    launches_by_path["glm_driver"], driver_timing, (
+        launches_by_path["glm_driver_ooc"], ooc_timing) = phase_driver(
+        dev, smi, peaks, gen,
+        then=lambda root, train_dir, val_dir: phase_glm_ooc(
+            root, train_dir, val_dir, dev, smi, gen, peaks))
     path_launches, path_timing = phase_path(obj, batch, csc, smi, gen, dev,
                                             peaks)
     launches_by_path.update(path_launches)
     max_err = max(max_err, path_timing["max_abs_err"])
     phase_re_solve(dev, gen, smi)
-    launches_by_path["game_cd"] = phase_game(dev, smi)
+    launches_by_path["game_cd"], game_ctx = phase_game(dev, smi)
     launches_by_path["game_driver"], game_driver_timing = phase_game_driver(
         dev, smi, peaks, gen)
+    launches_by_path["game_cd_streaming"] = phase_game_stream(game_ctx, dev,
+                                                              smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1591,6 +1995,14 @@ def main() -> int:
                 "library_ms")},
         "game_driver_with_values": {
             key: game_driver_timing[key] for key in (
+                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+        "stream_chunk": {
+            key: stream_timing[key] for key in (
+                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "sort_ms", "combine_ms", "h2d_ms")},
+        "glm_driver_ooc_chunk_with_values": {
+            key: ooc_timing[key] for key in (
                 "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
         "path_float64_with_values": {

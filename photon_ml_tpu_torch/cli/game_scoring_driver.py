@@ -10,9 +10,10 @@ output file appears only when complete (a temporary file committed by
 ``io.durable.durable_replace``). A model saved by either package scores
 here.
 
-``--out-of-core`` (decode, score and write one block window at a time)
-raises: its chunked reader waits for ROADMAP Queue 1 item 16. The
-device-loss exit code (75) comes with item 17.
+``--out-of-core`` decodes, scores and writes one block window at a time
+(``io.data_reader.read_training_examples_chunked``): host RAM holds one
+window plus the evaluators' 16 bytes per row. The device-loss exit code
+(75) comes with ROADMAP item 17.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.game_scoring_driver \\
@@ -34,7 +35,9 @@ from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.game.data import HostSparse
 from photon_ml_tpu_torch.game.scoring import score_game_model
 from photon_ml_tpu_torch.io.avro import write_avro_file
-from photon_ml_tpu_torch.io.data_reader import read_training_examples
+from photon_ml_tpu_torch.io.data_reader import (
+    read_training_examples, read_training_examples_chunked,
+)
 from photon_ml_tpu_torch.io.durable import durable_replace
 from photon_ml_tpu_torch.io.model_io import load_game_model
 from photon_ml_tpu_torch.io.paldb import load_index_map
@@ -65,8 +68,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for the scoring (default cuda, which "
                         "raises without a GPU)")
-    # accepted for parity with the JAX driver; raises (ROADMAP item 16)
-    p.add_argument("--out-of-core", action="store_true")
+    p.add_argument("--out-of-core", action="store_true",
+                   help="decode block windows of ~--batch-rows rows one at "
+                        "a time, score each and append its records before "
+                        "the next window decodes")
     return p
 
 
@@ -86,9 +91,6 @@ def _slice_host_sparse(sp, row_slice):
 
 def main(argv: Sequence[str] | None = None) -> int:
     args = build_arg_parser().parse_args(argv)
-    if args.out_of_core:
-        raise SystemExit("--out-of-core is not ported to the PyTorch driver "
-                         "yet: ROADMAP Queue 1 item 16 (streaming)")
     dev = resolve_device(args.device)
     dtype = resolve_dtype(args.dtype)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -108,6 +110,10 @@ def main(argv: Sequence[str] | None = None) -> int:
     ]
     if args.group_column and args.group_column not in entity_columns:
         entity_columns = entity_columns + [args.group_column]
+
+    if args.out_of_core:
+        return _score_out_of_core(args, model, index_maps, entity_columns,
+                                  logger, dtype, dev)
 
     with Timed(logger, "read_data"):
         feats, labels, offsets, weights, ents, uids = read_training_examples(
@@ -185,6 +191,68 @@ def _write_scores_atomic(output_dir: str, records) -> None:
             os.remove(tmp)
         raise
     durable_replace(tmp, final)
+
+
+def _score_out_of_core(args, model, index_maps, entity_columns, logger,
+                       dtype, dev) -> int:
+    """Stream decode -> score -> write, one block window at a time. The Avro
+    writer consumes a generator, so output records append as each window
+    finishes; only the evaluators' inputs (scores, labels, weights, groups:
+    16 bytes per row) accumulate in host RAM."""
+    chunk_rows = args.batch_rows or (1 << 16)
+    acc_scores, acc_labels, acc_weights, acc_groups = [], [], [], []
+    n_scored = [0]
+
+    def scored_records():
+        windows = read_training_examples_chunked(
+            args.data, index_maps, entity_columns=entity_columns,
+            columns=load_input_columns(args.input_columns),
+            chunk_rows=chunk_rows, require_response=False)
+        for feats, labels, offsets, weights, ents, uids in windows:
+            result = score_game_model(
+                model, feats, ents, offsets=offsets, dtype=dtype,
+                per_coordinate=args.per_coordinate_scores, device=dev)
+            if args.per_coordinate_scores:
+                scores, parts = result
+                parts = {k: v.cpu().numpy() for k, v in parts.items()}
+            else:
+                scores, parts = result, {}
+            scores = scores.cpu().numpy()
+            if args.evaluators:
+                # evaluator state is the only per-row accumulation
+                acc_scores.append(scores)
+                acc_labels.append(labels)
+                acc_weights.append(weights)
+                if args.group_column:
+                    acc_groups.append(ents[args.group_column])
+            n_scored[0] += len(scores)
+            for i, uid in enumerate(uids):
+                yield _scoring_record(uid, scores[i], labels[i], parts, i)
+
+    with Timed(logger, "score_and_write"):
+        _write_scores_atomic(args.output_dir, scored_records())
+
+    metrics = {}
+    if args.evaluators:
+        scores = np.concatenate(acc_scores) if acc_scores else np.zeros(0)
+        labels = np.concatenate(acc_labels) if acc_labels else np.zeros(0)
+        weights = (np.concatenate(acc_weights) if acc_weights
+                   else np.zeros(0))
+        labeled = ~np.isnan(labels)
+        if labeled.any():
+            groups = (np.concatenate(acc_groups)[labeled]
+                      if acc_groups else None)
+            for name in args.evaluators:
+                metrics[name] = get_evaluator(name).evaluate(
+                    scores[labeled], labels[labeled], weights[labeled],
+                    groups)
+        else:
+            logger.log("evaluation_skipped", reason="no labeled rows")
+    if metrics:
+        logger.log("evaluation", **metrics)
+    logger.log("driver_done", num_scored=n_scored[0])
+    logger.close()
+    return 0
 
 
 if __name__ == "__main__":

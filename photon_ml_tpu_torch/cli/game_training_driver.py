@@ -20,12 +20,16 @@ sparse fits goes through ``ops.kernels``'s ``multiply_prefix_sum`` (the
 hand-written CUDA kernel on the card, its plain version on the CPU), the
 random coordinates through the batched solvers of ``optimize/batched.py``.
 
+``--streaming`` keeps each fixed coordinate's shard in host RAM and
+streams it through the device in chunks of ``--chunk-rows`` rows on every
+pass; ``--out-of-core-shards`` never materializes the named shards,
+re-decoding them from disk each pass (or once, with ``--chunk-cache-dir``).
+
 Flags of the JAX driver that select parts of the port not written yet
-(streaming, multi-process, entity sharding, recovery, the registry,
-profiling) are accepted by the parser and raise, naming the ROADMAP item
-that ports them; the settings that only refine those parts
-(``--chunk-rows``, ``--recovery-snapshot-every``, ``--trace-sample``) are
-not accepted. The device-loss exit (resume marker, exit code 75) comes with
+(multi-process, entity sharding, recovery, the registry, profiling) are
+accepted by the parser and raise, naming the ROADMAP item that ports them;
+the settings that only refine those parts (``--recovery-snapshot-every``,
+``--trace-sample``) are not accepted. The device-loss exit (resume marker, exit code 75) comes with
 item 17.
 
 Usage:
@@ -59,20 +63,23 @@ from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
 from photon_ml_tpu_torch.game.descent import CoordinateConfig, GameDataset
 from photon_ml_tpu_torch.io.avro import iter_avro_records
+from photon_ml_tpu_torch.io.chunk_cache import ChunkCacheSource
 from photon_ml_tpu_torch.io.data_reader import read_training_examples
 from photon_ml_tpu_torch.io.index_map import (
     IndexMap, build_index_map, filter_index_map,
 )
 from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
+from photon_ml_tpu_torch.io.stream_source import AvroChunkSource
 from photon_ml_tpu_torch.ops.losses import TASK_TO_LOSS
 from photon_ml_tpu_torch.ops.normalization import (
     NormalizationType, build_normalization_context,
 )
-from photon_ml_tpu_torch.ops.statistics import summarize_features
+from photon_ml_tpu_torch.ops.statistics import (
+    summarize_features, summarize_features_streamed,
+)
 from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
 from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
 
-_STREAMING = "16 (streaming)"
 _MULTI = "15 and 17 (multi-device and multi-host)"
 _RECOVERY = "17 (recovery)"
 _OBSERVABILITY = "20 (observability)"
@@ -80,12 +87,6 @@ _OBSERVABILITY = "20 (observability)"
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
-    "streaming": _STREAMING,
-    "pad_nnz": _STREAMING,
-    "out_of_core_shards": _STREAMING,
-    "chunk_cache_dir": _STREAMING,
-    "chunk_cache_gb": _STREAMING,
-    "prefetch_depth": _STREAMING,
     "coordinator_address": _MULTI,
     "num_processes": _MULTI,
     "process_id": _MULTI,
@@ -185,13 +186,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="coordinates whose reg weights are tuned (default: all "
                         "unlocked)")
     p.add_argument("--tuning-seed", type=int, default=0)
+    p.add_argument("--streaming", action="store_true",
+                   help="fixed-effect coordinates keep their features in "
+                        "host RAM; each optimizer pass streams fixed-shape "
+                        "chunks through the device")
+    p.add_argument("--pad-nnz", type=int, default=None,
+                   help="fixed per-row feature width incl. intercept for "
+                        "--out-of-core-shards sources (default: one "
+                        "measuring decode pass per shard)")
+    p.add_argument("--out-of-core-shards", nargs="*", default=(),
+                   help="feature shards that never materialize in host "
+                        "RAM: their coordinates (streaming fixed effects) "
+                        "re-decode Avro block waves from disk every pass. "
+                        "Needs --hash-dim or --index-map")
+    p.add_argument("--chunk-rows", type=int, default=1 << 16,
+                   help="rows per streamed chunk (--streaming)")
+    p.add_argument("--chunk-cache-dir", default=None,
+                   help="with --out-of-core-shards: decode-once packed "
+                        "chunk cache root (one subdirectory per shard)")
+    p.add_argument("--chunk-cache-gb", type=float, default=None,
+                   help="per-shard disk budget for --chunk-cache-dir")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="streamed transfer-ring depth: chunks staged ahead "
+                        "of compute (default 2 / PHOTON_PREFETCH_DEPTH; 0 = "
+                        "synchronous)")
     # accepted for parity with the JAX driver; each raises (_DEFERRED)
-    p.add_argument("--streaming", action="store_true")
-    p.add_argument("--pad-nnz", type=int, default=None)
-    p.add_argument("--out-of-core-shards", nargs="*", default=())
-    p.add_argument("--chunk-cache-dir", default=None)
-    p.add_argument("--chunk-cache-gb", type=float, default=None)
-    p.add_argument("--prefetch-depth", type=int, default=None)
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -245,6 +264,76 @@ def _read_dataset(paths, index_maps, entity_columns, columns=None) -> GameDatase
     return GameDataset(feats, labels, weights, offsets, ents, None)
 
 
+def _summarize_resident(sp, labels, dev):
+    # float32 features, whatever --dtype: the JAX driver summarizes its
+    # default-dtype batch (the moments are accumulated in float64 on the
+    # host either way)
+    feats = SparseFeatures(
+        torch.from_numpy(sp.indices),
+        None if sp.values is None else torch.from_numpy(sp.values),
+        dim=sp.dim)
+    return summarize_features(make_batch(feats, labels, device=dev))
+
+
+def _check_out_of_core(args, grid, shards, ooc_shards) -> Dict[str, int]:
+    """Argv-only checks of the out-of-core flags, before any data is read;
+    returns each disk-backed shard's chunk rows (the smallest of the
+    coordinates that read it)."""
+    if args.chunk_cache_dir and not ooc_shards:
+        raise SystemExit("--chunk-cache-dir requires --out-of-core-shards "
+                         "(only disk-backed shards re-decode per pass)")
+    if args.chunk_cache_gb is not None and not args.chunk_cache_dir:
+        raise SystemExit("--chunk-cache-gb requires --chunk-cache-dir")
+    if not ooc_shards:
+        return {}
+    unknown = ooc_shards - set(shards)
+    if unknown:
+        raise SystemExit(f"--out-of-core-shards: {sorted(unknown)} not "
+                         f"used by any coordinate (shards: {sorted(shards)})")
+    if not (args.hash_dim or args.index_map):
+        raise SystemExit("--out-of-core-shards needs a pinned feature "
+                         "space (--hash-dim or --index-map): building "
+                         "an index map scans the full dataset")
+    # only streaming FIXED coordinates can consume a disk-backed shard; a
+    # random coordinate's data layer needs resident features
+    chunk_rows: Dict[str, int] = {}
+    for cfg in grid[0]:
+        if cfg.feature_shard not in ooc_shards:
+            continue
+        if cfg.coordinate_type != "fixed" or not cfg.streaming:
+            raise SystemExit(
+                f"--out-of-core-shards: shard '{cfg.feature_shard}' is "
+                f"used by coordinate '{cfg.name}' ({cfg.coordinate_type}"
+                f"{'' if cfg.streaming else ', streaming=false'}) — only "
+                "streaming fixed-effect coordinates can train from a "
+                "disk-backed shard")
+        chunk_rows[cfg.feature_shard] = min(
+            cfg.chunk_rows,
+            chunk_rows.get(cfg.feature_shard, cfg.chunk_rows))
+    return chunk_rows
+
+
+def _out_of_core_sources(args, index_maps, ooc_shards, chunk_rows, columns,
+                         dtype) -> Dict[str, object]:
+    """One disk-backed chunk source per out-of-core shard, behind a
+    decode-once cache with ``--chunk-cache-dir`` (the first streamed pass,
+    the summarization or the first fit pass, pays the decode)."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    sources = {
+        s: AvroChunkSource(args.train_data, index_maps[s],
+                           chunk_rows=chunk_rows.get(s, args.chunk_rows),
+                           columns=columns, pad_nnz=args.pad_nnz,
+                           dtype=np_dtype)
+        for s in sorted(ooc_shards)}
+    if args.chunk_cache_dir:
+        cache_bytes = (None if args.chunk_cache_gb is None
+                       else int(args.chunk_cache_gb * 1e9))
+        sources = {s: ChunkCacheSource(src, os.path.join(
+                       args.chunk_cache_dir, s), max_bytes=cache_bytes)
+                   for s, src in sources.items()}
+    return sources
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
@@ -292,6 +381,16 @@ def _run(args) -> int:
 
     columns = load_input_columns(args.input_columns)
     grid = _load_coordinate_grid(args.coordinates)
+    fixed_overrides = {}
+    if args.streaming:
+        fixed_overrides.update(streaming=True, chunk_rows=args.chunk_rows)
+    if args.prefetch_depth is not None:
+        fixed_overrides["prefetch_depth"] = args.prefetch_depth
+    if fixed_overrides:
+        grid = [[dataclasses.replace(cfg, **fixed_overrides)
+                 if cfg.coordinate_type == "fixed" else cfg
+                 for cfg in configs]
+                for configs in grid]
     re_overrides = {
         k: v for k, v in (("active_set", args.re_active_set),
                           ("refresh_every", args.re_refresh_every))
@@ -327,12 +426,20 @@ def _run(args) -> int:
         except ValueError as e:
             raise SystemExit(f"--tuning-coordinates: {e}")
 
+    ooc_shards = set(args.out_of_core_shards or ())
+    ooc_chunk_rows = _check_out_of_core(args, grid, shards, ooc_shards)
+
     with Timed(logger, "feature_indexing"):
         index_maps = _build_index_maps(args, columns, shards)
 
     with Timed(logger, "read_train_data"):
-        train = _read_dataset(args.train_data, index_maps, entity_columns,
-                              columns)
+        train = _read_dataset(
+            args.train_data,
+            {s: m for s, m in index_maps.items() if s not in ooc_shards},
+            entity_columns, columns)
+        if ooc_shards:
+            train.feature_sources = _out_of_core_sources(
+                args, index_maps, ooc_shards, ooc_chunk_rows, columns, dtype)
     validation = None
     if args.validation_data:
         with Timed(logger, "read_validation_data"):
@@ -347,16 +454,14 @@ def _run(args) -> int:
         contexts = {}
         with Timed(logger, "feature_summarization"):
             for shard in shards:
-                sp = train.features[shard]
-                # float32 features, whatever --dtype: the JAX driver
-                # summarizes its default-dtype batch (the moments are
-                # accumulated in float64 on the host either way)
-                feats = SparseFeatures(
-                    torch.from_numpy(sp.indices),
-                    None if sp.values is None
-                    else torch.from_numpy(sp.values), dim=sp.dim)
-                batch = make_batch(feats, train.labels, device=dev)
-                summary = summarize_features(batch)
+                if shard in ooc_shards:
+                    # one extra streamed pass over the disk-backed shard
+                    src = train.feature_sources[shard]
+                    summary = summarize_features_streamed(src, src.dim,
+                                                          src.rows)
+                else:
+                    summary = _summarize_resident(train.features[shard],
+                                                  train.labels, dev)
                 if args.summarize_features:
                     name = ("feature-summary.avro" if shard == "global"
                             else f"feature-summary.{shard}.avro")

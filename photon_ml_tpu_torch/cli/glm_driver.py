@@ -20,10 +20,18 @@ plain version on the CPU).
 a full-gradient KKT pass, and each lambda's ``PathLambdaStats`` in its
 ``lambda_trained`` event under ``path``.
 
+``--streaming`` keeps the training set in host RAM and streams
+fixed-shape chunks through the device on every optimizer pass
+(``parallel.streaming.fit_streaming``); ``--out-of-core`` never
+materializes it, re-decoding Avro block waves from disk each pass
+(``io.stream_source.AvroChunkSource``), or once with ``--chunk-cache-dir``
+(``io.chunk_cache.ChunkCacheSource``). Each chunk's gradient goes through
+the same kernel.
+
 Flags of the JAX driver that select parts of the port not written yet
-(streaming, multi-process, recovery, profiling) are accepted by the parser
-and raise, naming the ROADMAP item that ports them; the settings that only
-refine those parts (``--chunk-rows`` and the like) are not accepted.
+(multi-process, recovery, profiling) are accepted by the parser and raise,
+naming the ROADMAP item that ports them; the settings that only refine
+those parts are not accepted.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.glm_driver \\
@@ -50,10 +58,12 @@ from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
 from photon_ml_tpu_torch.game.data import HostSparse
 from photon_ml_tpu_torch.io.avro import iter_avro_records
+from photon_ml_tpu_torch.io.chunk_cache import ChunkCacheSource
 from photon_ml_tpu_torch.io.data_reader import decode_training_examples
 from photon_ml_tpu_torch.io.index_map import IndexMap, build_index_map
 from photon_ml_tpu_torch.io.libsvm import read_libsvm
 from photon_ml_tpu_torch.io.model_io import save_game_model
+from photon_ml_tpu_torch.io.stream_source import AvroChunkSource
 from photon_ml_tpu_torch.io.validators import validate_training_data
 from photon_ml_tpu_torch.models import (
     Coefficients,
@@ -76,19 +86,18 @@ from photon_ml_tpu_torch.optimize.path import PathSolver
 from photon_ml_tpu_torch.parallel.data_parallel import (
     build_csc, fit_distributed, resolve_sparse_grad,
 )
-from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
+from photon_ml_tpu_torch.parallel.streaming import (
+    fit_streaming, make_host_chunks, streaming_coefficient_variances,
+)
+from photon_ml_tpu_torch.types import (
+    LabeledBatch, SparseFeatures, make_batch, resolve_device,
+)
 from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
 
 # flags of the JAX driver whose code paths are not ported yet, by the
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
-    "streaming": "16 (streaming)",
-    "out_of_core": "16 (streaming)",
-    "chunk_cache_dir": "16 (streaming)",
-    "chunk_cache_gb": "16 (streaming)",
-    "prefetch_depth": "16 (streaming)",
-    "pad_nnz": "16 (streaming)",
     "coordinator_address": "15 and 17 (multi-device and multi-host)",
     "num_processes": "15 and 17 (multi-device and multi-host)",
     "process_id": "15 and 17 (multi-device and multi-host)",
@@ -164,15 +173,35 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "before a full-width fallback solve")
     p.add_argument("--path-min-bucket", type=int, default=64,
                    help="floor of the power-of-two restricted width")
+    p.add_argument("--streaming", action="store_true",
+                   help="keep the training set in host RAM and stream "
+                        "fixed-shape chunks through the device each "
+                        "optimizer pass")
+    p.add_argument("--out-of-core", action="store_true",
+                   help="implies --streaming: never materialize the "
+                        "training set; each pass re-decodes Avro block "
+                        "waves from disk on a background thread. Needs "
+                        "--input-format avro and --hash-dim or --index-map; "
+                        "no summarization or normalization")
+    p.add_argument("--pad-nnz", type=int, default=None,
+                   help="fixed per-row feature width incl. intercept for "
+                        "--out-of-core (default: one measuring decode pass)")
+    p.add_argument("--chunk-rows", type=int, default=1 << 16,
+                   help="rows per streamed chunk (--streaming)")
+    p.add_argument("--chunk-cache-dir", default=None,
+                   help="with --out-of-core: decode-once packed chunk cache "
+                        "directory; invalidated when the source files, the "
+                        "chunk geometry or the index map change")
+    p.add_argument("--chunk-cache-gb", type=float, default=None,
+                   help="disk budget for --chunk-cache-dir; a dataset that "
+                        "does not fit re-decodes every pass, with a warning")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="streamed transfer-ring depth: chunks staged ahead "
+                        "of compute (default 2 / PHOTON_PREFETCH_DEPTH; 0 = "
+                        "synchronous)")
     # accepted for parity with the JAX driver; each raises (_DEFERRED)
     p.add_argument("--auto-resume", action="store_true")
     p.add_argument("--max-rank-failures", type=int, default=0)
-    p.add_argument("--streaming", action="store_true")
-    p.add_argument("--out-of-core", action="store_true")
-    p.add_argument("--pad-nnz", type=int, default=None)
-    p.add_argument("--chunk-cache-dir", default=None)
-    p.add_argument("--chunk-cache-gb", type=float, default=None)
-    p.add_argument("--prefetch-depth", type=int, default=None)
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -282,6 +311,24 @@ def _run(args) -> int:
             "(optimize/path.py). Normalize the data on disk or drop one "
             "of the flags")
 
+    out_of_core = args.out_of_core
+    if args.chunk_cache_dir and not out_of_core:
+        raise SystemExit("--chunk-cache-dir requires --out-of-core (the "
+                         "in-RAM streaming path never re-decodes)")
+    if args.chunk_cache_gb is not None and not args.chunk_cache_dir:
+        raise SystemExit("--chunk-cache-gb requires --chunk-cache-dir")
+    if out_of_core:
+        if args.input_format != "avro":
+            raise SystemExit("--out-of-core requires --input-format avro")
+        if not (args.hash_dim or args.index_map):
+            raise SystemExit(
+                "--out-of-core needs a pinned feature space (--hash-dim or "
+                "--index-map): building an index map would scan the full "
+                "dataset — run the feature indexing driver first")
+        if args.summarize_features or NormalizationType(args.normalization) != NormalizationType.NONE:
+            raise SystemExit("--out-of-core cannot summarize/normalize: "
+                             "no resident data to scan")
+
     # -- stage: read + index -------------------------------------------------
     with Timed(logger, "read_train_data"):
         index_map = None
@@ -301,10 +348,25 @@ def _run(args) -> int:
                     add_intercept=args.add_intercept,
                     min_count=args.min_feature_count,
                 )
-        (host_feats, labels, offsets, weights, index_map,
-         intercept_index, decoder) = _read(
-            args.train_data, args.input_format, index_map, args.add_intercept
-        )
+        if out_of_core:
+            src = AvroChunkSource(
+                args.train_data, index_map, chunk_rows=args.chunk_rows,
+                pad_nnz=args.pad_nnz,
+                dtype=torch.empty((), dtype=dtype).numpy().dtype)
+            if args.chunk_cache_dir:
+                src = ChunkCacheSource(
+                    src, args.chunk_cache_dir,
+                    max_bytes=(None if args.chunk_cache_gb is None
+                               else int(args.chunk_cache_gb * 1e9)))
+            host_feats = labels = offsets = weights = None
+            intercept_index = index_map.intercept_index
+            decoder = src.decoder
+        else:
+            (host_feats, labels, offsets, weights, index_map,
+             intercept_index, decoder) = _read(
+                args.train_data, args.input_format, index_map,
+                args.add_intercept
+            )
     validation = None
     if args.validation_data:
         with Timed(logger, "read_validation_data"):
@@ -314,22 +376,39 @@ def _run(args) -> int:
             )
             validation = (vhost, vlabels, voffsets, vweights)
     logger.log("data_read",
-               num_train=int(labels.shape[0]),
+               num_train=(src.rows if out_of_core else int(labels.shape[0])),
                num_validation=0 if validation is None else int(vlabels.shape[0]),
-               num_features=host_feats.dim, decoder=decoder)
+               num_features=(index_map.size if out_of_core
+                             else host_feats.dim), decoder=decoder)
 
     # -- stage: validate (on host, before any device transfer) ---------------
     if args.validate_data:
         with Timed(logger, "validate_data"):
-            validate_training_data(host_feats, labels, offsets, weights,
-                                   task=task)
+            if out_of_core:
+                # no resident training data to scan: the source raises on
+                # unlabeled or malformed records as it decodes them
+                logger.log("validate_skipped_out_of_core")
+            else:
+                validate_training_data(host_feats, labels, offsets, weights,
+                                       task=task)
             if validation is not None:
                 validate_training_data(vhost, vlabels, voffsets, vweights,
                                        task=task)
 
     # -- stage: summarize + normalization ------------------------------------
-    dim = host_feats.dim
-    batch = _device_batch(host_feats, labels, offsets, weights, dtype, dev)
+    streaming = args.streaming or out_of_core
+    dim = index_map.size if out_of_core else host_feats.dim
+    if out_of_core:
+        chunks, batch = src, None
+    elif streaming:
+        # the training set stays in host RAM; only fixed-shape chunks ever
+        # reach the device
+        chunks, _ = make_host_chunks(host_feats, labels, offsets, weights,
+                                     chunk_rows=args.chunk_rows)
+        batch = LabeledBatch(host_feats, labels, offsets, weights)
+    else:
+        batch = _device_batch(host_feats, labels, offsets, weights, dtype,
+                              dev)
     validation_batch = None
     if validation is not None:
         validation_batch = _device_batch(vhost, vlabels, voffsets, vweights,
@@ -360,9 +439,11 @@ def _run(args) -> int:
     # the column sort behind the csc gradient paths is paid once for the
     # whole lambda grid, not per fit
     grid_csc = None
-    sparse_grad = resolve_sparse_grad("auto", batch.features)
-    if sparse_grad.startswith("csc"):
-        grid_csc = build_csc(batch, with_cols=sparse_grad == "csc_segment")
+    if not streaming:
+        sparse_grad = resolve_sparse_grad("auto", batch.features)
+        if sparse_grad.startswith("csc"):
+            grid_csc = build_csc(batch,
+                                 with_cols=sparse_grad == "csc_segment")
 
     path_solver = None
     if args.path_screen != "off":
@@ -370,9 +451,18 @@ def _run(args) -> int:
                           kkt_tol=args.path_kkt_tol,
                           max_kkt_rounds=args.path_max_kkt_rounds,
                           min_bucket=args.path_min_bucket)
-        path_solver = PathSolver(
-            objective, reg, batch=batch, optimizer=optimizer,
-            config=opt_config, path_config=pcfg, precomputed_csc=grid_csc)
+        if streaming:
+            # the restricted passes stream the same chunk sequence (with
+            # a chunk cache underneath, the whole path is one decode)
+            path_solver = PathSolver(
+                objective, reg, chunks=chunks, dim=dim, optimizer=optimizer,
+                config=opt_config, path_config=pcfg, dtype=dtype,
+                prefetch_depth=args.prefetch_depth, device=dev)
+        else:
+            path_solver = PathSolver(
+                objective, reg, batch=batch, optimizer=optimizer,
+                config=opt_config, path_config=pcfg,
+                precomputed_csc=grid_csc)
 
     results = []
     w = torch.zeros((dim,), dtype=dtype, device=dev)
@@ -387,6 +477,12 @@ def _run(args) -> int:
             if path_solver is not None:
                 res, path_stats = path_solver.solve(
                     lam, tolerance=run_config.tolerance)
+            elif streaming:
+                res = fit_streaming(
+                    objective, chunks, dim, w0=w,
+                    l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
+                    optimizer=optimizer, config=run_config, dtype=dtype,
+                    prefetch_depth=args.prefetch_depth, device=dev)
             else:
                 res = fit_distributed(
                     objective, batch, w,
@@ -411,6 +507,10 @@ def _run(args) -> int:
                     if np.isfinite(v)
                 ],
             }
+            if res.stream_stats is not None:
+                # this lambda's decode-wait / transfer / compute-stall
+                # seconds over its whole pass sequence
+                diag["stream"] = res.stream_stats
             if path_stats is not None:
                 diag["path"] = path_stats.as_dict()
             metrics = {}
@@ -423,9 +523,15 @@ def _run(args) -> int:
                 diag["metrics"] = metrics
             variances = None
             if args.compute_variances:
-                variances = objective.coefficient_variances(
-                    res.w, batch, reg.l2_weight(lam)
-                )
+                if streaming:
+                    variances = streaming_coefficient_variances(
+                        objective, chunks, dim, res.w,
+                        l2=reg.l2_weight(lam), dtype=dtype,
+                        prefetch_depth=args.prefetch_depth, device=dev)
+                else:
+                    variances = objective.coefficient_variances(
+                        res.w, batch, reg.l2_weight(lam)
+                    )
             results.append((lam, res, metrics, variances))
             logger.log("lambda_trained", **diag)
 
@@ -460,7 +566,7 @@ def _run(args) -> int:
             ).cpu().numpy()
             report["hosmer_lemeshow"] = diagnostics.hosmer_lemeshow(
                 probs, vlabels)
-        if args.bootstrap_replicates > 0:
+        if args.bootstrap_replicates > 0 and not streaming:
             with Timed(logger, "bootstrap"):
                 boot = diagnostics.bootstrap_coefficients(
                     objective, batch, res_best.w,

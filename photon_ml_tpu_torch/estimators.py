@@ -71,9 +71,10 @@ class GlmPathEstimator:
     """Pathwise fixed-effect GLM over a lambda grid: screening and KKT
     certification per lambda through one shared ``PathSolver``, so the
     whole grid (and any later ``fit`` on the same estimator) reuses warm
-    states. ``fit`` takes an in-memory ``LabeledBatch`` on ``device``;
-    the grid is solved in the order given (decreasing lambda screens
-    best)."""
+    states. ``fit`` takes an in-memory ``LabeledBatch`` on ``device``, or
+    host ``chunks`` (with ``dim``) streamed through ``device`` in
+    ``dtype``; the grid is solved in the order given (decreasing lambda
+    screens best)."""
 
     def __init__(
         self,
@@ -86,8 +87,10 @@ class GlmPathEstimator:
         device=None,
         config: Optional[OptimizerConfig] = None,
         path_config: Optional[PathConfig] = None,
+        dtype=torch.float32,
     ):
         self.task = task
+        self.dtype = dtype
         self.reg = RegularizationContext(reg_type, alpha=elastic_net_alpha)
         self.optimizer = optimizer
         self.evaluator_names = list(evaluators)
@@ -110,7 +113,8 @@ class GlmPathEstimator:
             self._solver = PathSolver(
                 objective, self.reg, batch=batch, chunks=chunks, dim=dim,
                 optimizer=self.optimizer, config=self.config,
-                path_config=self.path_config)
+                path_config=self.path_config, dtype=self.dtype,
+                device=self.device)
         return self._solver
 
     def fit(

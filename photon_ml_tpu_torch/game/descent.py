@@ -12,15 +12,20 @@ effect over sparse features takes the column-sorted gradient path: its
 ``CSCTranspose`` is built once per coordinate, and every gradient and TRON
 Hessian-vector product of its fits goes through the resolved ``sparse_grad``
 mode's ``X^T d`` (``"auto"`` is ``"csc_kernel"``: on the card, the
-``multiply_prefix_sum`` kernel). Random effects solve their buckets with
+``multiply_prefix_sum`` kernel). A fixed coordinate with ``streaming=True``
+keeps its shard in host RAM as fixed-shape chunks and streams them through
+the device on every pass (``parallel.streaming.fit_streaming``, the same
+kernel per chunk); a shard in ``GameDataset.feature_sources`` (a
+disk-backed ``io.stream_source.AvroChunkSource``) never materializes on the
+host, and each CD step's residual offsets ride over it through
+``ScalarOverlaySource``. Random effects solve their buckets with
 ``game/random_effect.py``'s batched solvers.
 
 Optimizer-space coefficients (normalization folded into the objective)
 stay internal; scoring and saved models use model-space coefficients.
 
-Not ported yet, each raising and naming its ROADMAP item: streaming and
-disk-backed fixed effects (16), a mesh (15), entity sharding, the entity
-table budget and in-job recovery (17).
+Not ported yet, each raising and naming its ROADMAP item: a mesh (15),
+entity sharding, the entity table budget and in-job recovery (17).
 """
 
 from __future__ import annotations
@@ -55,8 +60,13 @@ from photon_ml_tpu_torch.ops.regularization import (
     RegularizationContext, RegularizationType,
 )
 from photon_ml_tpu_torch.optimize import OptimizerConfig, get_optimizer
+from photon_ml_tpu_torch.io.stream_source import ScalarOverlaySource
 from photon_ml_tpu_torch.parallel.data_parallel import (
     make_csc_path, resolve_sparse_grad,
+)
+from photon_ml_tpu_torch.parallel.streaming import (
+    PinnedRing, fit_streaming, iter_device_chunks, make_host_chunks,
+    resolve_prefetch_depth, streaming_coefficient_variances,
 )
 from photon_ml_tpu_torch.types import (
     LabeledBatch, SparseFeatures, margins as _margins, resolve_device,
@@ -96,8 +106,11 @@ class CoordinateConfig:
     # column-sorted kernel path for sparse features), "scatter", "csc",
     # "csc_kernel", "csc_precise" or "csc_segment"
     sparse_grad: str = "auto"
-    streaming: bool = False  # ROADMAP item 16
+    # larger-than-device-memory fixed effect: the shard stays on the host
+    # as fixed-shape chunks streamed through the device every pass
+    streaming: bool = False
     chunk_rows: int = 1 << 16
+    # streamed transfer-ring depth (parallel.streaming.iter_device_chunks)
     prefetch_depth: Optional[int] = None
     active_cap: Optional[int] = None  # random-effect only
     num_buckets: int = 4  # random-effect entity size buckets
@@ -135,9 +148,10 @@ class CoordinateConfig:
         if self.coordinate_type == "random" and self.entity_column is None:
             raise ValueError(f"random coordinate '{self.name}' needs "
                              "entity_column")
-        if self.streaming:
-            raise _not_ported(f"coordinate '{self.name}': streaming=True",
-                              "16 (streaming)")
+        if self.streaming and self.coordinate_type != "fixed":
+            raise ValueError(
+                f"coordinate '{self.name}': streaming applies to fixed "
+                "effects (random-effect data is per-entity bucketed)")
         if self.optimizer == "newton" and self.coordinate_type != "random":
             raise ValueError(
                 f"coordinate '{self.name}': optimizer='{self.optimizer}' "
@@ -155,6 +169,11 @@ class CoordinateConfig:
             raise ValueError(
                 f"compute_variance={self.compute_variance!r}; expected "
                 "False, True, 'diagonal' or 'full'")
+        # fail at config time, not after a long streamed fit
+        if self.compute_variance == "full" and self.streaming:
+            raise ValueError(
+                "compute_variance='full' needs the d x d Hessian in device "
+                "memory; not available with streaming=True (use 'diagonal')")
         if self.prefetch_depth is not None and self.prefetch_depth < 0:
             raise ValueError(
                 f"coordinate '{self.name}': prefetch_depth must be >= 0, "
@@ -181,13 +200,13 @@ class GameDataset:
     offsets: np.ndarray
     entity_ids: Dict[str, np.ndarray]
     group_ids: Optional[np.ndarray] = None  # for per_group_* evaluators
-    # disk-backed shards (ROADMAP item 16): must be None here
+    # larger-than-host-RAM shards: a disk-backed chunk source (e.g.
+    # io.stream_source.AvroChunkSource over the same rows, in order) per
+    # shard that is NOT materialized in `features`; a streaming fixed
+    # coordinate on it re-decodes its features every optimizer pass
     feature_sources: Optional[Dict[str, object]] = None
 
     def __post_init__(self):
-        if self.feature_sources:
-            raise _not_ported("GameDataset(feature_sources=...)",
-                              "16 (streaming)")
         self.labels = np.asarray(self.labels, np.float64)
         n = len(self.labels)
         self.weights = (np.ones(n) if self.weights is None
@@ -268,22 +287,12 @@ class _FixedState:
 
     def __init__(self, cfg: CoordinateConfig, data: GameDataset, dtype,
                  task: str, device: torch.device):
-        sp = data.features[cfg.feature_shard]
         self.cfg = cfg
         self.dtype = dtype
         self.device = device
-        self.dim = sp.dim
         self.n_all = data.num_samples
-        if cfg.down_sampling_rate < 1.0:
-            rows, w = down_sample(data.labels, data.weights,
-                                  cfg.down_sampling_rate, task=task, seed=0)
-        else:
-            rows, w = np.arange(data.num_samples), data.weights
-        self.train_rows = torch.as_tensor(rows, dtype=torch.long,
-                                          device=device)
         self.w: Optional[torch.Tensor] = None  # optimizer (training) space
         self.variances = None
-
         reg = cfg.reg_context()
         self.l2 = reg.l2_weight(cfg.reg_weight)
         self.l1 = reg.l1_weight(cfg.reg_weight)
@@ -294,8 +303,29 @@ class _FixedState:
         self.obj = make_objective(task, normalization=cfg.normalization,
                                   intercept_index=cfg.intercept_index)
         self._opt = get_optimizer(optimizer)
-
+        self.streaming = cfg.streaming
+        self._ooc = None
+        if self.streaming:
+            self._ring = PinnedRing(device,
+                                    resolve_prefetch_depth(
+                                        cfg.prefetch_depth) + 2)
+        source = (data.feature_sources or {}).get(cfg.feature_shard)
+        if source is not None:
+            self._init_out_of_core(data, source)
+            return
+        sp = data.features[cfg.feature_shard]
+        self.dim = sp.dim
+        if cfg.down_sampling_rate < 1.0:
+            rows, w = down_sample(data.labels, data.weights,
+                                  cfg.down_sampling_rate, task=task, seed=0)
+        else:
+            rows, w = np.arange(data.num_samples), data.weights
+        self.train_rows = torch.as_tensor(rows, dtype=torch.long,
+                                          device=device)
         full = rows.shape[0] == data.num_samples
+        if self.streaming:
+            self._init_streaming(sp, data, rows, w, full)
+            return
         feats = SparseFeatures(
             torch.as_tensor(sp.indices if full else sp.indices[rows],
                             dtype=torch.int32, device=device),
@@ -327,6 +357,64 @@ class _FixedState:
         self.full_features = (feats if full
                               else _device_features(sp, dtype, device))
 
+    def _init_streaming(self, sp: HostSparse, data: GameDataset, rows, w,
+                        full: bool) -> None:
+        """The shard stays on the host as fixed-shape chunks; no device
+        copy of its features exists."""
+        train_sp = HostSparse(
+            np.asarray(sp.indices)[rows],
+            None if sp.values is None else np.asarray(sp.values)[rows],
+            sp.dim)
+        cr = self.cfg.chunk_rows
+        self._chunks, _ = make_host_chunks(train_sp, data.labels[rows], None,
+                                           w, chunk_rows=cr)
+        self._score_chunks = (self._chunks if full else make_host_chunks(
+            sp, data.labels, chunk_rows=cr)[0])
+        self._last_chunks = self._chunks
+
+    def _init_out_of_core(self, data: GameDataset, source) -> None:
+        """A shard that never materializes in host RAM: every optimizer
+        pass re-decodes the source's chunks, with the CD residual offsets
+        (host arrays) overlaid onto the streamed scalars."""
+        cfg = self.cfg
+        if not cfg.streaming:
+            raise ValueError(
+                f"coordinate '{cfg.name}': shard '{cfg.feature_shard}' is "
+                "disk-backed (feature_sources) — set streaming=True")
+        if cfg.down_sampling_rate < 1.0:
+            raise ValueError(
+                f"coordinate '{cfg.name}': down-sampling needs row "
+                "indexing; not supported out of core")
+        total_rows = getattr(source, "total_rows", source.rows)
+        if total_rows != data.num_samples:
+            raise ValueError(
+                f"coordinate '{cfg.name}': source has {total_rows} rows, "
+                f"dataset has {data.num_samples} — they must be the same "
+                "data in the same order")
+        self.dim = source.dim
+        self.train_rows = torch.arange(data.num_samples, device=self.device)
+        self._ooc = (source, data.labels, data.weights)
+        self._score_chunks = source
+        self._last_chunks = ScalarOverlaySource(source, labels=data.labels,
+                                                weights=data.weights)
+
+    def _streamed_chunks(self, offs: torch.Tensor):
+        """This step's chunks: the residual offsets over the host chunks
+        (or the disk-backed source)."""
+        offs_np = offs.cpu().numpy()
+        if self._ooc is not None:
+            source, labels, weights = self._ooc
+            return ScalarOverlaySource(source, labels=labels,
+                                       weights=weights, offsets=offs_np)
+        cr = self.cfg.chunk_rows
+        out = []
+        for i, c in enumerate(self._chunks):
+            seg = offs_np[i * cr:(i + 1) * cr]
+            if len(seg) < cr:
+                seg = np.pad(seg, (0, cr - len(seg)))
+            out.append(dataclasses.replace(c, offsets=seg))
+        return out
+
     def _batch(self, offs) -> LabeledBatch:
         return LabeledBatch(self.feats, self.labels, offs, self.weights)
 
@@ -345,6 +433,8 @@ class _FixedState:
     def fit(self, offsets_full: torch.Tensor, opt_config=None):
         run_cfg = self.cfg.opt_config() if opt_config is None else opt_config
         offs = offsets_full[self.train_rows].to(self.dtype)
+        if self.streaming:
+            return self._fit_streaming(offs, run_cfg)
         batch = self._batch(offs)
         fg, value, hvp = self._closures(batch)
         w0 = self.w if self.w is not None else torch.zeros(
@@ -364,9 +454,44 @@ class _FixedState:
                 res.w, batch, self.l2, mode=mode)
         return res
 
+    def _fit_streaming(self, offs: torch.Tensor, run_cfg):
+        cfg = self.cfg
+        chunks = self._streamed_chunks(offs)
+        self._last_chunks = chunks
+        w0 = self.w if self.w is not None else torch.zeros(
+            self.dim, dtype=self.dtype, device=self.device)
+        res = fit_streaming(
+            self.obj, chunks, self.dim, w0=w0, l2=self.l2, l1=self.l1,
+            optimizer=self.optimizer, config=run_cfg, dtype=self.dtype,
+            prefetch_depth=cfg.prefetch_depth, sparse_grad=cfg.sparse_grad,
+            device=self.device)
+        self.w = res.w
+        if cfg.compute_variance:
+            self.variances = streaming_coefficient_variances(
+                self.obj, chunks, self.dim, res.w, self.l2, dtype=self.dtype,
+                prefetch_depth=cfg.prefetch_depth,
+                sparse_grad=cfg.sparse_grad, device=self.device)
+        return res
+
     def train_scores(self, w_model: torch.Tensor) -> torch.Tensor:
-        """This coordinate's margins over every training row."""
-        return _margins(self.full_features, w_model)
+        """This coordinate's margins over every training row; streamed, in
+        one pass over the chunks' features (no device copy of the
+        shard)."""
+        if not self.streaming:
+            return _margins(self.full_features, w_model)
+        w_model = w_model.to(self.dtype)
+
+        def features(c):
+            fields = {"indices": (c.indices, torch.int32)}
+            if c.values is not None:
+                fields["values"] = (c.values, self.dtype)
+            return self._ring.put(fields, "score chunk")
+
+        outs = [_margins(SparseFeatures(t["indices"], t.get("values"),
+                                        self.dim), w_model)
+                for _c, t in iter_device_chunks(
+                    self._score_chunks, features, self.cfg.prefetch_depth)]
+        return torch.cat(outs)[: self.n_all]
 
     def model_space_w(self) -> torch.Tensor:
         """Raw-feature-space coefficients for scoring/saving."""
@@ -568,6 +693,9 @@ class CoordinateDescent:
                             loss=float(res.value),
                             converged=bool(res.converged),
                             optimizer_iterations=int(res.iterations))
+                        if res.stream_stats is not None:
+                            # a streamed fixed effect's pass accounting
+                            record["stream"] = res.stream_stats
                         w_model = st.model_space_w()
                         new_scores = st.train_scores(w_model)
                         score_delta = float(torch.max(torch.abs(

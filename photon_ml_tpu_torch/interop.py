@@ -135,13 +135,16 @@ def game_model_from_numpy(model, dtype=torch.float64,
 def game_dataset_from_numpy(dataset):
     """The port's GameDataset from a GameDataset of the JAX package (or any
     object of the same shape): host numpy throughout, as both packages keep
-    it. Disk-backed shards (``feature_sources``) are not carried."""
+    it. Disk-backed shards (``feature_sources``) are not carried: the JAX
+    package's chunk sources cannot cross."""
     from photon_ml_tpu_torch.game.descent import GameDataset
 
     if getattr(dataset, "feature_sources", None):
-        raise ValueError("a GameDataset with feature_sources (disk-backed "
-                         "shards) cannot cross: stream support is ROADMAP "
-                         "Queue 1 item 16")
+        raise ValueError(
+            "a GameDataset with feature_sources (disk-backed shards) cannot "
+            "cross: build the port's io.stream_source.AvroChunkSource over "
+            "the same files and pass it as the port's "
+            "GameDataset(feature_sources=...)")
     features = {
         name: HostSparse(np.array(sp.indices),
                          None if sp.values is None else np.array(sp.values),

@@ -1,7 +1,6 @@
 """Avro training-data reader/writer honoring the TrainingExampleAvro contract
 (counterpart of ``photon_ml_tpu/io/data_reader.py``: the bulk reader, the
-record parser and the writer; the chunked scoring reader waits for the
-port's ``io/stream_source.py``).
+chunked scoring reader, the record parser and the writer).
 
 Equivalent of the reference's ``data.avro.AvroDataReader`` +
 ``NameAndTermFeatureMapUtils`` (SURVEY.md §3.3; reference mount empty):
@@ -231,3 +230,196 @@ def feature_tuples_from_dense(X: np.ndarray, prefix: str = "f"):
     """Helper for fixtures: dense matrix -> per-row (name, term, value)."""
     for row in np.asarray(X):
         yield [(f"{prefix}{j}", "", float(v)) for j, v in enumerate(row) if v != 0]
+
+
+def read_training_examples_chunked(
+    paths,
+    index_maps: IndexMap | Dict[str, IndexMap],
+    entity_columns: Sequence[str] = (),
+    columns: Optional[InputColumnsNames] = None,
+    chunk_rows: int = 1 << 16,
+    require_response: bool = True,
+):
+    """Generator form of :func:`read_training_examples` for out-of-core
+    bulk scoring: yields windows of ~``chunk_rows`` rows as the same tuple
+    (features-per-shard, labels, offsets, weights, entity_vals, uids),
+    decoding container block ranges one window at a time, so host RAM holds
+    one window, never the dataset. Windows follow block boundaries (Avro
+    blocks are the atomic decode unit): a window's row count is the
+    smallest block-aligned count >= ``chunk_rows`` (the final window is
+    whatever remains).
+
+    Unlike the training-path ``io.stream_source.AvroChunkSource`` (one
+    shard, fixed shapes, re-iterable), this reader serves the scoring
+    driver: all feature shards resolve in one decode, uid and entity
+    columns are captured, and one forward pass per window is the whole
+    consumption pattern."""
+    from photon_ml_tpu_torch.io.stream_source import scan_blocks
+
+    if not isinstance(index_maps, dict):
+        index_maps = {"global": index_maps}
+    cols = columns or InputColumnsNames()
+    blocks, _schema = scan_blocks(paths)
+
+    windows: List[List] = []
+    cur: List = []
+    rows = 0
+    for b in blocks:
+        cur.append(b)
+        rows += b.count
+        if rows >= chunk_rows:
+            windows.append(cur)
+            cur, rows = [], 0
+    if cur:
+        windows.append(cur)
+
+    if not os.environ.get("PHOTON_ML_TPU_NO_NATIVE"):
+        from photon_ml_tpu_torch.io.native_reader import NativeUnsupported
+
+        try:
+            yield from _chunked_native(windows, index_maps, entity_columns,
+                                       cols, require_response)
+            return
+        except NativeUnsupported:
+            pass
+    yield from _chunked_python(windows, index_maps, entity_columns, cols,
+                               require_response)
+
+
+def _chunked_native(windows, index_maps, entity_columns, cols,
+                    require_response):
+    import ctypes
+
+    from photon_ml_tpu_torch.io.avro import _read_header
+    from photon_ml_tpu_torch.io.native_reader import (
+        NativeUnsupported, _Resolver, _decode_threads, _extract_scalars, _lib,
+        _np_from, _pad_features, compile_field_program,
+    )
+    from photon_ml_tpu_torch.native import NativeBuildError
+
+    try:
+        lib = _lib()
+    except NativeBuildError as e:
+        raise NativeUnsupported(str(e)) from e
+    shards = sorted(index_maps)
+    if not shards:
+        raise NativeUnsupported("no feature shards requested")
+    # every file's field program is compiled before the first window is
+    # yielded: NativeUnsupported must fire before the caller's Python
+    # fallback could replay windows already yielded
+    prog_cache: Dict[str, bytes] = {}
+    for w_ in windows:
+        for b_ in w_:
+            if b_.path not in prog_cache:
+                with open(b_.path, "rb") as fh:
+                    schema, _, _ = _read_header(fh, b_.path)
+                prog_cache[b_.path] = compile_field_program(
+                    schema, cols, bool(entity_columns))
+    resolvers = [_Resolver(index_maps[s]) for s in shards]
+    try:
+        keys = [c.encode() for c in entity_columns]
+        blob = b"".join(keys)
+        lens = (ctypes.c_uint32 * max(len(keys), 1))(
+            *[len(k) for k in keys])
+        n_shards = len(resolvers)
+        fis = (ctypes.c_void_p * n_shards)(
+            *[r.fis_handle for r in resolvers])
+        ptrs = (ctypes.c_void_p * n_shards)(
+            *[r.fis_lookup_ptr for r in resolvers])
+        hdims = (ctypes.c_int64 * n_shards)(
+            *[r.hash_dim for r in resolvers])
+        threads = _decode_threads()
+
+        for window in windows:
+            handle = lib.avd_create(blob, lens, len(keys), n_shards)
+            try:
+                # one native decode per file of the window
+                at = 0
+                while at < len(window):
+                    path = window[at].path
+                    prog = prog_cache[path]
+                    part = []
+                    with open(path, "rb") as f:
+                        while at < len(window) and window[at].path == path:
+                            b = window[at]
+                            f.seek(b.payload_offset)
+                            payload = f.read(b.payload_size)
+                            if len(payload) != b.payload_size:
+                                raise ValueError(f"{path}: truncated block")
+                            part.append((payload, b))
+                            at += 1
+                    datas = (ctypes.c_char_p * len(part))(
+                        *[p for p, _ in part])
+                    blens = (ctypes.c_uint64 * len(part))(
+                        *[len(p) for p, _ in part])
+                    counts = (ctypes.c_int64 * len(part))(
+                        *[b.count for _, b in part])
+                    deflate = 1 if part[0][1].codec == "deflate" else 0
+                    rc = lib.avd_decode_blocks_mt(
+                        handle, datas, blens, counts, len(part), deflate,
+                        prog, len(prog), fis, ptrs, hdims, n_shards,
+                        threads)
+                    if rc != 0:
+                        err = lib.avd_error(handle)
+                        raise ValueError(
+                            f"{path}: native decode failed: "
+                            f"{err.decode() if err else rc}")
+                rows = int(lib.avd_rows(handle))
+                nnz = int(lib.avd_nnz(handle))
+                counts_a = _np_from(lib.avd_feat_counts(handle), rows,
+                                    np.int64)
+                flat_val = _np_from(lib.avd_feat_values(handle), nnz,
+                                    np.float64)
+                features = {}
+                for si, shard in enumerate(shards):
+                    imap = index_maps[shard]
+                    flat_idx = _np_from(lib.avd_feat_indices(handle, si),
+                                        nnz, np.int32)
+                    idx, val = _pad_features(counts_a, flat_idx, flat_val,
+                                             imap.intercept_index)
+                    features[shard] = HostSparse(idx, val, imap.size)
+                (labels, has_label, offsets, weights, uids,
+                 entity_vals) = _extract_scalars(lib, handle, rows,
+                                                 entity_columns)
+            finally:
+                lib.avd_free(handle)
+            labels = labels.copy()
+            missing = ~has_label.astype(bool)
+            if require_response and missing.any():
+                i = int(np.argmax(missing))
+                raise ValueError(
+                    f"record uid={uids[i]} has no '{cols.response}' — "
+                    "training data must be labeled")
+            labels[missing] = np.nan
+            yield features, labels, offsets, weights, entity_vals, uids
+    finally:
+        for r in resolvers:
+            r.close()
+
+
+def _chunked_python(windows, index_maps, entity_columns, cols,
+                    require_response):
+    from photon_ml_tpu_torch.io.stream_source import iter_block_records
+
+    for window in windows:
+        rows_per_shard = {s: [] for s in index_maps}
+        labels, offsets, weights, uids = [], [], [], []
+        entity_vals = {c: [] for c in entity_columns}
+        for rec in iter_block_records(window):
+            label, offset, weight, uid, evals, shard_rows = _parse_record(
+                rec, cols, index_maps, entity_columns, require_response)
+            labels.append(label)
+            offsets.append(offset)
+            weights.append(weight)
+            uids.append(uid)
+            for c, v in zip(entity_columns, evals):
+                entity_vals[c].append(v)
+            for shard, row in shard_rows.items():
+                rows_per_shard[shard].append(row)
+        features = {
+            shard: _rows_to_host_sparse(rows, index_maps[shard].size)
+            for shard, rows in rows_per_shard.items()
+        }
+        yield (features, np.asarray(labels), np.asarray(offsets),
+               np.asarray(weights),
+               {c: np.asarray(v) for c, v in entity_vals.items()}, uids)

@@ -1,6 +1,5 @@
 """Per-feature summary statistics (counterpart of
-``photon_ml_tpu/ops/statistics.py``; the streamed form waits for the port's
-streaming slice).
+``photon_ml_tpu/ops/statistics.py``, with the one-process streamed form).
 
 Equivalent of the reference's ``stat.BasicStatisticalSummary`` (SURVEY.md
 §3.1; reference mount empty): per-feature mean, variance, min/max, nonzero
@@ -104,3 +103,59 @@ def summarize_features(batch: LabeledBatch) -> FeatureSummary:
         num_nonzeros=nnz,
         count=n,
     )
+
+
+def summarize_features_streamed(chunks, dim: int,
+                                num_rows: int) -> FeatureSummary:
+    """:func:`summarize_features` over ONE streamed pass of a chunk source
+    (``parallel.streaming.HostChunk`` iterable: in-RAM lists or the
+    disk-backed ``io.stream_source.AvroChunkSource``): per-feature float64
+    moments accumulate across chunks, so out-of-core shards feed
+    normalization contexts without a resident copy.
+
+    ``num_rows`` is the REAL row count: chunks are fixed-shape with
+    trailing padding rows in the final chunk, and padding must not count as
+    rows of implicit zeros. A genuine weight-0 row still counts
+    (summarization is unweighted, as in the in-RAM function). The
+    multi-process form (``total_rows``/``part_reduce``) is ROADMAP item
+    15."""
+    s1 = np.zeros(dim)
+    s2 = np.zeros(dim)
+    nnz = np.zeros(dim)
+    mx = np.full(dim, -np.inf)
+    mn = np.full(dim, np.inf)
+    at = 0
+    for c in chunks:
+        rows = c.indices.shape[0]
+        live = max(0, min(rows, num_rows - at))
+        at += rows
+        if live == 0:
+            continue
+        idxs = np.asarray(c.indices[:live]).reshape(-1)
+        if c.values is None:
+            # implicit ones: every slot is a real 1.0 feature
+            cnt = np.bincount(idxs, minlength=dim).astype(np.float64)
+            s1 += cnt
+            s2 += cnt
+            nnz += cnt
+            mx = np.where(cnt > 0, np.maximum(mx, 1.0), mx)
+            mn = np.where(cnt > 0, np.minimum(mn, 1.0), mn)
+        else:
+            vals = np.asarray(c.values[:live], np.float64).reshape(-1)
+            present = vals != 0.0
+            idx, val = idxs[present], vals[present]
+            np.add.at(s1, idx, val)
+            np.add.at(s2, idx, val ** 2)
+            np.add.at(nnz, idx, 1.0)
+            np.maximum.at(mx, idx, val)
+            np.minimum.at(mn, idx, val)
+    n = num_rows
+    has_zero = nnz < n
+    mx = np.where(has_zero, np.maximum(mx, 0.0), mx)
+    mn = np.where(has_zero, np.minimum(mn, 0.0), mn)
+    mx = np.where(np.isfinite(mx), mx, 0.0)
+    mn = np.where(np.isfinite(mn), mn, 0.0)
+    mean = s1 / max(n, 1)
+    var = np.maximum(s2 / max(n, 1) - mean ** 2, 0.0)
+    return FeatureSummary(mean=mean, variance=var, std=np.sqrt(var),
+                          min=mn, max=mx, num_nonzeros=nnz, count=n)

@@ -109,7 +109,8 @@ class OptimizationResult(NamedTuple):
     ``host_syncs`` counts the device-to-host reads the loop made.
     ``solver_tolerance`` and ``screened_dim`` are set by the path solver
     (``optimize/path.py``): the tolerance the fit ran to and the width of
-    the problem it finally solved."""
+    the problem it finally solved. ``stream_stats`` is a streamed fit's
+    pipeline accounting (``parallel.streaming.StreamStats.as_dict``)."""
 
     w: torch.Tensor
     value: torch.Tensor
@@ -121,6 +122,7 @@ class OptimizationResult(NamedTuple):
     host_syncs: int
     solver_tolerance: Optional[float] = None
     screened_dim: Optional[int] = None
+    stream_stats: Optional[dict] = None
 
 
 def _clamped_tol(tol, dtype, device) -> torch.Tensor:

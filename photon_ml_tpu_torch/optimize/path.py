@@ -30,8 +30,15 @@ restricted solve builds its own inside ``fit_distributed``.
 
 Normalization does not compose with screening (the virtual shift couples
 every column through the margin adjustment), so :class:`PathSolver`
-refuses the combination. The out-of-core mode (``chunks=``) waits for
-ROADMAP item 16 and raises.
+refuses the combination.
+
+The out-of-core mode (``chunks=`` host chunks, e.g. a disk-backed
+``io.stream_source.AvroChunkSource``) runs every solve through
+``parallel.streaming.fit_streaming``: a restricted solve streams
+:class:`_RestrictedChunks`, which remaps each chunk's columns through the
+LUT on the host as the transfer thread pulls it, and the certification
+pass is one ``streaming_value_and_grad`` pass. Under a chunk cache the
+whole path is one decode of the data.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.ops.objective import GLMObjective, make_objective
@@ -53,7 +61,12 @@ from photon_ml_tpu_torch.optimize.common import (
 from photon_ml_tpu_torch.parallel.data_parallel import (
     build_csc, fit_distributed, make_csc_path, resolve_sparse_grad,
 )
-from photon_ml_tpu_torch.types import LabeledBatch, SparseFeatures
+from photon_ml_tpu_torch.parallel.streaming import (
+    HostChunk, fit_streaming, streaming_value_and_grad,
+)
+from photon_ml_tpu_torch.types import (
+    LabeledBatch, SparseFeatures, resolve_device,
+)
 
 _log = logging.getLogger("photon_ml_tpu_torch")
 
@@ -112,14 +125,51 @@ class _PathState:
     g: Optional[torch.Tensor]
 
 
+class _RestrictedChunks:
+    """Lazy LUT-remapped view of a host chunk sequence: each access
+    rebuilds the chunk with member columns remapped into ``[0, bucket)``
+    and non-member slots zeroed, at the same ``[rows, k]`` shape.
+    Implicit-ones chunks materialize values here (the member mask is the
+    value)."""
+
+    def __init__(self, chunks: Sequence, member: np.ndarray,
+                 lut: np.ndarray, value_dtype):
+        self._chunks = chunks
+        self._member = member
+        self._lut = lut
+        self._vdtype = value_dtype
+
+    def __len__(self) -> int:
+        return len(self._chunks)
+
+    def _remap(self, c):
+        m = self._member[c.indices]
+        idx = np.where(m, self._lut[c.indices], 0)
+        ones = np.ones(c.indices.shape, self._vdtype)
+        vals = ones if c.values is None else c.values
+        return HostChunk(
+            indices=np.ascontiguousarray(idx, np.int32),
+            values=np.where(m, vals, np.zeros((), self._vdtype)),
+            labels=c.labels, offsets=c.offsets, weights=c.weights)
+
+    def __getitem__(self, i):
+        return self._remap(self._chunks[i])
+
+    def __iter__(self):
+        for c in self._chunks:
+            yield self._remap(c)
+
+
 class PathSolver:
     """Pathwise fixed-effect solver: screen -> restricted solve -> KKT
     certify, one lambda at a time, with warm state shared across calls.
 
-    ``batch`` is a LabeledBatch on its device; every tensor the solver
-    makes lies there. ``solve(reg_weight)`` returns ``(OptimizationResult,
-    PathLambdaStats)`` with the result's ``w`` scattered back to full width
-    and ``solver_tolerance``/``screened_dim`` set."""
+    Exactly one of ``batch`` (a LabeledBatch on its device; every tensor
+    the solver makes lies there) and ``chunks`` (host chunks, with ``dim``,
+    ``dtype`` and ``device``, default ``cuda``) is given.
+    ``solve(reg_weight)`` returns ``(OptimizationResult, PathLambdaStats)``
+    with the result's ``w`` scattered back to full width and
+    ``solver_tolerance``/``screened_dim`` set."""
 
     def __init__(
         self,
@@ -135,13 +185,12 @@ class PathSolver:
         sparse_grad: str = "auto",
         precomputed_csc=None,
         w0=None,
+        dtype=torch.float32,
+        prefetch_depth: Optional[int] = None,
+        device=None,
     ):
-        if chunks is not None:
-            raise NotImplementedError(
-                "PathSolver(chunks=...) streams host chunks: not ported yet, "
-                "ROADMAP Queue 1 item 16 (streaming)")
-        if batch is None:
-            raise ValueError("pass batch=")
+        if (batch is None) == (chunks is None):
+            raise ValueError("pass exactly one of batch= or chunks=")
         if objective.normalization is not None \
                 and path_config.screen != "off":
             raise ValueError(
@@ -162,7 +211,33 @@ class PathSolver:
         self._robj = make_objective(
             objective.loss, None, objective.regularize_intercept,
             0 if objective.intercept_index >= 0 else -1)
+        self._chunks = chunks
+        self._prefetch_depth = prefetch_depth
+        if chunks is not None:
+            if dim is None:
+                raise ValueError("chunks= mode needs dim=")
+            self._batch = None
+            self._dev = resolve_device(device)
+            self._dtype = dtype
+            self._dim = int(dim)
+            self._csc = None
+            fg = streaming_value_and_grad(
+                objective, chunks, self._dim, dtype, prefetch_depth,
+                sparse_grad=sparse_grad, device=self._dev)
+            self._full_fg = lambda w: fg(w, 0.0)
+        else:
+            self._init_batch(batch, objective, sparse_grad, precomputed_csc)
+        self._w_init = (torch.zeros(self._dim, dtype=self._dtype,
+                                    device=self._dev) if w0 is None
+                        else torch.as_tensor(w0, dtype=self._dtype,
+                                             device=self._dev))
+        self._penalized = torch.ones(self._dim, dtype=torch.bool,
+                                     device=self._dev)
+        if objective.intercept_index >= 0 \
+                and not objective.regularize_intercept:
+            self._penalized[objective.intercept_index] = False
 
+    def _init_batch(self, batch, objective, sparse_grad, precomputed_csc):
         self._batch = batch
         self._dev = batch.device
         self._dtype = batch.labels.dtype
@@ -198,15 +273,6 @@ class PathSolver:
                     f"precomputed_csc given but sparse_grad={resolved!r} "
                     "does not use it")
             self._full_fg = lambda w: objective.value_and_grad(w, batch, 0.0)
-        self._w_init = (torch.zeros(self._dim, dtype=self._dtype,
-                                    device=self._dev) if w0 is None
-                        else torch.as_tensor(w0, dtype=self._dtype,
-                                             device=self._dev))
-        self._penalized = torch.ones(self._dim, dtype=torch.bool,
-                                     device=self._dev)
-        if objective.intercept_index >= 0 \
-                and not objective.regularize_intercept:
-            self._penalized[objective.intercept_index] = False
 
     # -- full data-gradient pass (screen init + certification) -------------
     def _full_grad(self, w: torch.Tensor) -> torch.Tensor:
@@ -309,6 +375,15 @@ class PathSolver:
                           lam_l2, run_cfg) -> OptimizationResult:
         w0 = torch.zeros(bucket, dtype=self._dtype, device=self._dev)
         w0[: cols.shape[0]] = w_warm[cols]
+        if self._chunks is not None:
+            rchunks = _RestrictedChunks(
+                self._chunks, member.cpu().numpy(), lut.cpu().numpy(),
+                torch.empty((), dtype=self._dtype).numpy().dtype)
+            return fit_streaming(
+                self._robj, rchunks, bucket, w0, l2=lam_l2, config=run_cfg,
+                dtype=self._dtype, optimizer=self._resolve_opt(lam_l1),
+                l1=lam_l1, prefetch_depth=self._prefetch_depth,
+                sparse_grad=self._sparse_grad, device=self._dev)
         rbatch = self._restrict_batch(member, cols, lut, bucket)
         return fit_distributed(
             self._robj, rbatch, w0, l2=lam_l2, l1=lam_l1,
@@ -317,6 +392,13 @@ class PathSolver:
 
     def _solve_full(self, w_warm, lam_l1, lam_l2,
                     run_cfg) -> OptimizationResult:
+        if self._chunks is not None:
+            return fit_streaming(
+                self._objective, self._chunks, self._dim, w_warm, l2=lam_l2,
+                config=run_cfg, dtype=self._dtype,
+                optimizer=self._resolve_opt(lam_l1), l1=lam_l1,
+                prefetch_depth=self._prefetch_depth,
+                sparse_grad=self._sparse_grad, device=self._dev)
         return fit_distributed(
             self._objective, self._batch, w_warm, l2=lam_l2, l1=lam_l1,
             optimizer=self._resolve_opt(lam_l1), config=run_cfg,

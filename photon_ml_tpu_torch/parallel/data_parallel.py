@@ -39,7 +39,7 @@ from typing import Callable, Optional
 
 import torch
 
-from photon_ml_tpu_torch.ops.kernels import csc_transpose_apply_kernel
+from photon_ml_tpu_torch.ops.kernels import TILE, csc_transpose_apply_kernel
 from photon_ml_tpu_torch.ops.losses import apply_weights, mask_margins
 from photon_ml_tpu_torch.ops.normalization import (
     eff_coeffs, norm_chain_t, norm_fixed_fs,
@@ -59,7 +59,9 @@ from photon_ml_tpu_torch.types import (
 SPARSE_GRAD_MODES = ("scatter", "csc", "csc_kernel", "csc_precise",
                      "csc_segment")
 _CSC_APPLY = {
-    "csc": csc_transpose_apply,
+    # the plain path blocks at the kernel's tile, so both difference the
+    # same tile-local float64 prefixes and round each column sum alike
+    "csc": functools.partial(csc_transpose_apply, block=TILE),
     "csc_kernel": csc_transpose_apply_kernel,
     "csc_precise": functools.partial(csc_transpose_apply, precise=True),
     "csc_segment": csc_segment_apply,

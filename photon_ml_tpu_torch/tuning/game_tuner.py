@@ -1,8 +1,8 @@
 """Auto-tune GAME regularization weights after the explicit grid
 (counterpart of ``photon_ml_tpu/tuning/game_tuner.py`` on the port's
 estimators: each estimator carries its ``device`` where the JAX package's
-carries a ``mesh``; ``tune_glm_path``'s streamed ``chunks=`` mode waits for
-ROADMAP Queue 1 item 16).
+carries a ``mesh``; ``tune_glm_path(chunks=)`` tunes over a streamed
+dataset through the same shared path solver).
 
 Equivalent of the reference's GAME Bayesian-tuning path (SURVEY.md §4.5:
 GameTrainingDriver seeds a GaussianProcessSearch with the evaluated grid
@@ -74,10 +74,6 @@ def tune_glm_path(
     grid + tuned picks the winner. Total solver work is visible as
     ``estimator.solver().total_iterations`` — the tuner test asserts it
     beats independent cold fits."""
-    if chunks is not None:
-        raise NotImplementedError(
-            "tune_glm_path(chunks=...) tunes over a streamed dataset: not "
-            "ported yet, ROADMAP Queue 1 item 16 (streaming)")
     if not estimator.evaluator_names:
         raise ValueError("tuning needs at least one evaluator on the estimator")
     if mode not in ("random", "bayesian"):

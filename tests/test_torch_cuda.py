@@ -375,3 +375,104 @@ def test_game_drivers_on_card_match_cpu(cuda, tmp_path):
     for bg, bc in zip(card["per_user"].buckets, cpu["per_user"].buckets):
         assert _rel(bg.coefficients, bc.coefficients) < 1e-9
     assert np.max(np.abs(scores["cuda"] - scores["cpu"])) <= 1e-9
+
+
+def _stream_chunks(n=3000, dim=300, k=7, chunk_rows=512, seed=3):
+    from photon_ml_tpu_torch.game.data import HostSparse
+    from photon_ml_tpu_torch.parallel.streaming import make_host_chunks
+
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, dim, (n, k)).astype(np.int32)
+    vals = r.normal(size=(n, k))
+    y = (r.random(n) < 0.4).astype(float)
+    chunks, _ = make_host_chunks(HostSparse(idx, vals, dim), y,
+                                 r.normal(scale=0.1, size=n),
+                                 r.random(n) + 0.5, chunk_rows=chunk_rows)
+    return chunks, dim
+
+
+def test_streamed_kernel_fg_matches_plain_on_card(cuda):
+    """One streamed gradient pass through the kernel (one launch per
+    chunk) against the plain column-sorted pass, both on the card, and
+    against the same pass in float64 on the CPU."""
+    from photon_ml_tpu_torch.parallel.streaming import (
+        streaming_value_and_grad,
+    )
+
+    chunks, dim = _stream_chunks()
+    obj = make_objective("logistic")
+    w = torch.linspace(-0.5, 0.5, dim)
+    out = {}
+    for mode in ("csc_kernel", "csc"):
+        launches = multiply_prefix_sum.launches
+        fg = streaming_value_and_grad(obj, chunks, dim, torch.float32,
+                                      sparse_grad=mode, device=cuda)
+        out[mode] = fg(w.to(cuda), 0.5)
+        used = multiply_prefix_sum.launches - launches
+        assert used == (len(chunks) if mode == "csc_kernel" else 0)
+    f64 = streaming_value_and_grad(obj, chunks, dim, torch.float64,
+                                   device="cpu")(w.double(), 0.5)
+    assert torch.equal(out["csc_kernel"][1], out["csc"][1])
+    assert float(out["csc_kernel"][0]) == float(out["csc"][0])
+    g = out["csc_kernel"][1].double().cpu()
+    assert float((g - f64[1]).norm() / f64[1].norm()) < 1e-5
+
+
+@pytest.mark.parametrize("optimizer", ["lbfgs", "tron"])
+def test_streamed_fit_depth_invariant_on_card(cuda, optimizer):
+    """Prefetch depth 0 and 2 give bit-identical fits on the card."""
+    from photon_ml_tpu_torch.parallel.streaming import fit_streaming
+
+    chunks, dim = _stream_chunks()
+    fits = [fit_streaming(make_objective("logistic"), chunks, dim, l2=1.0,
+                          config=OptimizerConfig(max_iters=5, tolerance=0.0),
+                          optimizer=optimizer, prefetch_depth=depth,
+                          device=cuda)
+            for depth in (0, 2)]
+    assert torch.equal(fits[0].w, fits[1].w)
+    assert fits[0].stream_stats["kernel_passes"] \
+        == fits[1].stream_stats["kernel_passes"]
+
+
+def test_slow_consumer_over_the_ring_sees_every_chunk_intact(cuda):
+    """A consumer slower than the transfer thread over a ring of depth 2:
+    the pinned buffers are refilled only after their copies completed, so
+    every chunk lands intact and the pass equals the synchronous one."""
+    import time
+
+    from photon_ml_tpu_torch.parallel import streaming
+
+    chunks, dim = _stream_chunks(chunk_rows=256)
+    ring = streaming.PinnedRing(cuda, 4)
+    seen = []
+    for hc, t in streaming.iter_device_chunks(
+            chunks, lambda c: streaming._chunk_to_device(c, torch.float32,
+                                                         ring), depth=2):
+        torch.cuda._sleep(2_000_000)  # keep the compute stream busy
+        time.sleep(0.01)
+        seen.append((hc, t["indices"].clone(), t["offsets"].clone()))
+    torch.cuda.synchronize()
+    assert len(seen) == len(chunks)
+    for hc, idx, offs in seen:
+        assert np.array_equal(idx.cpu().numpy(), hc.indices)
+        assert np.array_equal(offs.cpu().numpy(),
+                              hc.offsets.astype(np.float32))
+    obj = make_objective("logistic")
+    w = torch.full((dim,), 0.01, device=cuda)
+    slow = streaming.streaming_value_and_grad(obj, chunks, dim, device=cuda,
+                                              prefetch_depth=2)
+    sync = streaming.streaming_value_and_grad(obj, chunks, dim, device=cuda,
+                                              prefetch_depth=0)
+    real = streaming._kahan_add
+
+    def slowed(acc, comp, x):
+        torch.cuda._sleep(1_000_000)
+        return real(acc, comp, x)
+
+    streaming._kahan_add = slowed
+    try:
+        got = slow(w, 1.0)
+    finally:
+        streaming._kahan_add = real
+    want = sync(w, 1.0)
+    assert torch.equal(got[1], want[1]) and float(got[0]) == float(want[0])

@@ -22,6 +22,10 @@ from photon_ml_tpu_torch.ops import normalization
 from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.optimize.common import OptimizerConfig
 from photon_ml_tpu_torch.parallel.data_parallel import fit_distributed
+from photon_ml_tpu_torch.parallel.streaming import (
+    fit_streaming, make_host_chunks, streaming_coefficient_variances,
+    streaming_value_and_grad,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
@@ -64,7 +68,8 @@ def test_every_module_is_checked():
                    "tuning/gp", "tuning/search", "tuning/game_tuner",
                    "io/durable", "cli/feature_indexing_driver",
                    "cli/game_training_driver", "cli/game_scoring_driver",
-                   "cli/_common"):
+                   "cli/_common", "parallel/streaming", "io/stream_source",
+                   "io/chunk_cache", "utils/transfer_budget"):
         assert f"photon_ml_tpu_torch/{module}.py" in names, module
 
 
@@ -194,6 +199,12 @@ def _game_driver(name):
     return run
 
 
+def _chunks():
+    return make_host_chunks(
+        HostSparse(np.array([[0, 1], [1, 2], [2, 0]], np.int32), None, 3),
+        np.array([1.0, 0.0, 1.0]), chunk_rows=2)[0]
+
+
 ENTRY_POINTS = {
     "make_batch": lambda device: types.make_batch(
         np.ones((2, 3)), np.ones(2), device=device),
@@ -237,6 +248,15 @@ ENTRY_POINTS = {
         "score_game_model")},
     **{name: _game_driver(name) for name in (
         "game_training_driver", "game_scoring_driver")},
+    "fit_streaming": lambda device: fit_streaming(
+        make_objective("logistic"), _chunks(), 3,
+        config=OptimizerConfig(max_iters=2), device=device),
+    "streaming_value_and_grad": lambda device: streaming_value_and_grad(
+        make_objective("logistic"), _chunks(), 3, device=device),
+    "streaming_coefficient_variances": lambda device:
+        streaming_coefficient_variances(make_objective("logistic"),
+                                        _chunks(), 3, np.zeros(3),
+                                        device=device),
 }
 
 

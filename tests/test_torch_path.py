@@ -294,8 +294,13 @@ def test_normalization_and_chunks_refused(tmp_path):
     with pytest.raises(ValueError, match="normalization"):
         PathSolver(obj, reg, batch=batch, path_config=PathConfig("strong"))
     PathSolver(obj, reg, batch=batch, path_config=PathConfig("off"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PathSolver(make_objective("logistic"), reg, chunks=[], dim=4)
+    with pytest.raises(ValueError, match="needs dim"):
+        PathSolver(make_objective("logistic"), reg, chunks=[])
+    with pytest.raises(ValueError, match="exactly one"):
+        PathSolver(make_objective("logistic"), reg, chunks=[], batch=batch)
+    with pytest.raises(ValueError, match="normalization"):
+        PathSolver(obj, reg, chunks=[], dim=24,
+                   path_config=PathConfig("strong"), device="cpu")
     with pytest.raises(SystemExit, match="--normalization"):
         glm_driver.main(["--train-data", "absent.svm", "--input-format",
                          "libsvm", "--output-dir", str(tmp_path / "o"),
@@ -365,3 +370,50 @@ def test_driver_path_screen_matches_off_and_jax(driver_runs):
         assert abs(es["metrics"]["auc"] - eo["metrics"]["auc"]) <= 1e-6
         assert es["loss"] == pytest.approx(ej["loss"], rel=1e-9)
         assert es["loss"] == pytest.approx(eo["loss"], rel=1e-9)
+
+
+def test_chunks_path_matches_jax_chunks_path():
+    """The out-of-core mode: both packages walk the sparse problem's path
+    over host chunks of 256 rows (streamed restricted solves through
+    ``_RestrictedChunks``, streamed certification passes); per lambda the
+    same screening record, supports equal and ``w`` within 1e-6."""
+    from photon_ml_tpu.game.data import HostSparse as JaxHostSparse
+    from photon_ml_tpu.parallel.streaming import (
+        make_host_chunks as jax_chunks,
+    )
+    from photon_ml_tpu_torch.game.data import HostSparse
+    from photon_ml_tpu_torch.parallel.streaming import make_host_chunks
+
+    idx, vals, y, wts, d = _sparse_problem()
+    zeros = np.zeros(len(y))
+    jc, _ = jax_chunks(JaxHostSparse(idx, vals, d), y, zeros, wts,
+                       chunk_rows=256)
+    pc, _ = make_host_chunks(HostSparse(idx, vals, d), y, zeros, wts,
+                             chunk_rows=256)
+    cfg = dict(tolerance=1e-12, max_iters=40)
+    js = JaxPathSolver(
+        jax_objective("logistic", None, False, 0),
+        JaxReg("elastic_net", alpha=ALPHA), chunks=jc, dim=d,
+        optimizer="auto", config=JaxConfig(**cfg),
+        path_config=JaxPathConfig(screen="strong", min_bucket=8),
+        dtype=jnp.float64)
+    ps = PathSolver(
+        make_objective("logistic", None, False, 0),
+        RegularizationContext("elastic_net", alpha=ALPHA), chunks=pc, dim=d,
+        optimizer="auto", config=OptimizerConfig(**cfg),
+        path_config=PathConfig(screen="strong", min_bucket=8),
+        dtype=torch.float64, device="cpu")
+    assert ps.lambda_max() == pytest.approx(js.lambda_max(), rel=1e-12)
+    screened = False
+    for lam in _grid(js.lambda_max(), n=3):
+        rj, sj = js.solve(lam)
+        rp, sp = ps.solve(lam)
+        wj, wp = np.asarray(rj.w), rp.w.numpy()
+        assert sp.certified and sj.certified
+        np.testing.assert_array_equal(wp != 0, wj != 0)
+        assert _rel(wp, wj) <= TOL_JAX, f"lambda={lam}"
+        assert (sp.candidate_size, sp.screened_dim, sp.kkt_rounds) == \
+            (sj.candidate_size, sj.screened_dim, sj.kkt_rounds)
+        assert rp.stream_stats is not None
+        screened = screened or sp.features_frozen > 0
+    assert screened
