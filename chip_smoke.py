@@ -60,8 +60,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     geometric from ``lambda_max()`` down to 1e-2 of it, walked with
     ``screen="strong"`` and with ``screen="off"``, first in float32 with the
     GLM driver's default solver settings (100 iterations, tolerance 1e-7),
-    then in float64 (OWL-QN, at most 200 iterations per solve at tolerance
-    0). Per lambda it prints the candidates, the restricted width, the KKT
+    then in float64 over the grid's first 10 lambdas (OWL-QN, at most 200
+    iterations per solve at tolerance 0). Per lambda it prints the candidates, the restricted width, the KKT
     rounds, both solve times and how far the two walks' solutions differ.
     Gates, in both dtypes: every lambda certified; at the coordinates
     each restricted solve froze a fresh full gradient within the KKT slack;
@@ -144,9 +144,39 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     random-effect buckets. Gates: kernel launches = 4 chunks x the fixed
     fit's passes, and the AUC within 1e-3 of phase 12's first sweep.
 
+17. multi-process, after phase 16 (``parallel.mesh``,
+    ``parallel.multihost``), three legs and the driver's:
+    (a) a one-rank group over NCCL in this process
+    (``initialize_multihost("127.0.0.1:<free port>", 1, 0)``, backend
+    ``cpu:gloo,cuda:nccl``) and phase 5's fit through
+    ``fit_distributed(..., sparse_grad="csc_kernel", mesh=make_mesh({"data":
+    1}))``: ITERS + 1 launches and ``w`` within 1e-3 of phase 5's (0
+    expected); (b) two ranks of this script on the one card
+    (``--mp-rank``), over gloo on CUDA tensors (NCCL refuses two ranks on
+    one device): each checks gloo's all_reduce and all_gather on CUDA
+    float32 and float64 tensors, shards phase 5's data (written by this
+    process) once, keeping its 2^20 rows on the card, and runs L-BFGS
+    (margin, 20 iterations) and TRON (10) on that block through
+    ``fit_shard``, and the streamed L-BFGS over its span (16 chunks of 2^16
+    rows), all through ``"csc_kernel"``; the ranks' ``w`` equal bit for
+    bit, each fit within 1e-3 of phase 5's, 7's or 14's, L-BFGS launching
+    ITERS + 1 times, TRON 2 + host reads + accepted steps (its one-device
+    cost model, the accepted steps read from its loss history, on each
+    rank and on one device) and the streamed fit 16 times per kernel
+    pass; each rank prints its launches, seconds, the seconds in
+    collectives and its host reads per fit; (c) in the same two ranks, one
+    GAME sweep of phase 12's data and coordinates with the random
+    coordinates sharded over ``{"data": 1, "entity": 2}``: the
+    coefficients within 1e-5 of a one-rank sweep and the AUC within 1e-6.
+    The driver leg, inside phase 9's directory: the GLM driver with
+    ``--num-processes 1 --process-id 0 --coordinator-address`` on phase 9's
+    files (one lambda) writes a model byte-identical to the run without
+    the flags.
+
 Each fit's launch count is set to 0 just before it and read just after
 (for phases 9, 13 and 15: before and after each driver run; for phases 10
-and 12: before and after each of the four walks and the estimator's fit).
+and 12: before and after each of the four walks and the estimator's fit;
+in phase 17, in each rank's own process).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -185,6 +215,9 @@ DRIVER_MIN_AUC = 0.6
 # lambdas from lambda_max down to 1e-2 lambda_max
 PATH_ALPHA, PATH_LAMBDAS, PATH_SPAN = 0.9, 20, 1e-2
 PATH_ITERS = 200  # per float64 solve, tolerance 0 (see phase_path)
+# the float64 walks stop after the grid's first 10 lambdas, down to about
+# 0.11 lambda_max: the last 10 took 40-56 s and run in float32 as well
+PATH_F64_LAMBDAS = 10
 PATH_F32_ITERS, PATH_F32_TOL = 100, 1e-7  # the GLM driver's defaults
 TOL_SCAN_F64 = 1e-12  # the float64 kernel: |err_i| <= this * cumsum|x|
 TOL_GRAD = {torch.float32: 1e-6, torch.float64: 1e-10}  # rel L2 of a
@@ -454,6 +487,18 @@ def phase_owlqn(fit, f0, smi):
     return launches
 
 
+def tron_accepted(res, n_rows: int) -> int:
+    """TRON's accepted steps, read from its loss history: a rejected step
+    leaves the loss as it was, bit for bit (``optimize/tron.py`` records
+    ``where(accept, f_try, f)``), and an accepted one lowers it. The loss
+    before the first step, at w0 = 0, is ``n_rows * log 2`` up to the
+    float32 sum's rounding."""
+    lh = res.loss_history[:res.iterations].double().cpu()
+    f0 = n_rows * math.log(2.0)
+    first = int(abs(float(lh[0]) - f0) > 1e-5 * f0)
+    return first + int((lh[1:] != lh[:-1]).sum())
+
+
 def phase_tron(fit, f0, smi):
     """TRON with the Jacobi preconditioner at full width: every gradient,
     CG step and preconditioner pass launches the kernel; bit-reproducible."""
@@ -482,7 +527,7 @@ def phase_tron(fit, f0, smi):
     float(plain.value)
     print(f"fit tron csc (plain): {time.perf_counter() - t0:.4f} s")
     check_plain("tron", res, plain)
-    return launches
+    return launches, res
 
 
 def phase_full_line_search(gen, dev, smi):
@@ -685,7 +730,7 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
                 "--evaluators", "auc", "--device", str(dev),
                 "--output-dir", out]
         fits, scored = [], []
-        real_fit, real_get = glm_driver.fit_distributed, glm_driver.get_evaluator
+        real_fit, real_get = glm_driver.fit_shard, glm_driver.get_evaluator
 
         def counted_fit(objective, batch, w0, **kw):
             torch.cuda.synchronize()
@@ -700,7 +745,7 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
                          "launches": multiply_prefix_sum.launches - before})
             return res
 
-        glm_driver.fit_distributed = counted_fit
+        glm_driver.fit_shard = counted_fit
         glm_driver.get_evaluator = \
             lambda name: _RecordingEvaluator(real_get(name), scored)
         try:
@@ -712,7 +757,7 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
             seconds = time.perf_counter() - t0
             launches = multiply_prefix_sum.launches
         finally:
-            glm_driver.fit_distributed = real_fit
+            glm_driver.fit_shard = real_fit
             glm_driver.get_evaluator = real_get
         if rc != 0:
             raise RuntimeError(f"glm_driver exited with {rc}")
@@ -789,10 +834,11 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
     return launches, dict(timing, nnz=nnz), after
 
 
-def path_walks(obj, reg, batch, csc, config, grid=None):
-    """Walk ``grid`` (by default 20 lambdas from ``lambda_max()`` down to
-    1e-2 of it) with ``screen="strong"`` and with ``screen="off"``; each
-    walk's kernel count is set to 0 just before it and read just after.
+def path_walks(obj, reg, batch, csc, config, lambdas=PATH_LAMBDAS):
+    """Walk the first ``lambdas`` of the grid of 20 lambdas from
+    ``lambda_max()`` down to 1e-2 of it with ``screen="strong"`` and with
+    ``screen="off"``; each walk's kernel count is set to 0 just before it
+    and read just after.
     Returns (grid, {rule: (solver, [(result, stats)], seconds,
     launches)})."""
     from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
@@ -804,9 +850,10 @@ def path_walks(obj, reg, batch, csc, config, grid=None):
         solver = PathSolver(obj, reg, batch=batch, config=config,
                             path_config=PathConfig(screen=rule),
                             precomputed_csc=csc)
-        if grid is None:
+        if rule == "strong":
             lmax = solver.lambda_max()
-            grid = np.geomspace(lmax, PATH_SPAN * lmax, PATH_LAMBDAS)
+            grid = np.geomspace(lmax, PATH_SPAN * lmax,
+                                PATH_LAMBDAS)[:lambdas]
         torch.cuda.synchronize()
         multiply_prefix_sum.launches = 0
         t0 = time.perf_counter()
@@ -983,7 +1030,7 @@ def phase_path(obj, batch, csc, smi, gen, dev, peaks):
         batch.labels.double(), batch.offsets.double(),
         batch.weights.double())
     grid, walks = path_walks(obj, reg, batch64, csc, OptimizerConfig(
-        max_iters=PATH_ITERS, tolerance=0.0))
+        max_iters=PATH_ITERS, tolerance=0.0), lambdas=PATH_F64_LAMBDAS)
     launches["path_f64_strong"] = walks["strong"][3]
     launches["path_f64_off"] = walks["off"][3]
     print_walks("float64", grid, walks, smi)
@@ -1718,7 +1765,8 @@ def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
           f"pinned indices copy {h2d_ms:.4f} ms "
           f"({pinned.nbytes / 1e6 / h2d_ms:.2f} GB/s); on {smi}")
     return launches_by_fit, dict(timing, nnz=nnz, sort_ms=sort_ms,
-                                 combine_ms=combine_ms, h2d_ms=h2d_ms)
+                                 combine_ms=combine_ms, h2d_ms=h2d_ms,
+                                 lbfgs_res=res2)
 
 
 class _RssPeak:
@@ -1844,6 +1892,440 @@ def phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks):
     return launches_by_run["ooc_cold"], dict(timing, nnz=nnz)
 
 
+# -- phase 17: multi-process ---------------------------------------------
+MP_WORLD = 2  # leg (b): two ranks on the one card, over gloo
+MP_TIMEOUT_S = 600  # leg (b)'s ranks, from spawn to exit
+TOL_MP_RE = 1e-5  # leg (c): random-effect coefficients, max |diff|
+TOL_MP_AUC = 1e-6  # leg (c): the sweep's auc
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _CollectiveClock:
+    """Times every ``torch.distributed`` collective the port calls between
+    two device synchronizations (so a collective's seconds exclude the
+    compute queued before it); installed for a repeat of a fit whose own
+    seconds are taken without it."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast")
+
+    def __init__(self):
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._real = {n: getattr(dist, n) for n in self.NAMES}
+
+        def timed(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return call
+
+        for n, fn in self._real.items():
+            setattr(dist, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._real.items():
+            setattr(dist, n, fn)
+
+
+def phase_mp_world1(obj, batch, csc, w5, smi):
+    """Phase 17 (a): a one-rank NCCL group in this process
+    (``initialize_multihost``: backend ``cpu:gloo,cuda:nccl``) and phase
+    5's fit through ``fit_distributed(..., mesh=make_mesh({"data": 1}))``:
+    ITERS + 1 launches and ``w`` within TOL_FIT of phase 5's (0 expected).
+    Returns the launches."""
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+    from photon_ml_tpu_torch.parallel.data_parallel import fit_distributed
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+    from photon_ml_tpu_torch.parallel.multihost import initialize_multihost
+
+    t0 = time.perf_counter()
+    initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0, timeout_s=120)
+    try:
+        mesh = make_mesh({"data": 1})
+        print(f"phase 17 (a): world 1 over {dist.get_backend()}, mesh "
+              f"{mesh.mesh_dim_names} {tuple(mesh.shape)}, rendezvous "
+              f"{time.perf_counter() - t0:.3f} s")
+
+        def fit(iters):
+            return fit_distributed(
+                obj, batch, torch.zeros(DIM, device=batch.device), l2=1.0,
+                config=OptimizerConfig(max_iters=iters, tolerance=0.0),
+                sparse_grad="csc_kernel", precomputed_csc=csc, mesh=mesh)
+
+        fit(2)  # warm-up
+        res, sec, launches = run_counted(lambda: fit(ITERS))
+        with _CollectiveClock() as clock:
+            fit(ITERS)
+    finally:
+        dist.destroy_process_group()
+    rel = rel_l2(res.w, w5)
+    print(f"  fit lbfgs csc_kernel, mesh data=1: {res.iterations} "
+          f"iterations, {launches} launches, {res.host_syncs} host reads, "
+          f"{sec:.4f} s ({clock.calls} collectives, {clock.seconds:.4f} s in "
+          f"them in a timed repeat); |w - w_phase5| / |w_phase5| = "
+          f"{rel:.3e} (tol {TOL_FIT}) on {smi}")
+    if launches != ITERS + 1 or res.iterations != ITERS:
+        raise RuntimeError(f"world 1: {launches} launches in "
+                           f"{res.iterations} iterations")
+    if not rel <= TOL_FIT:
+        raise RuntimeError(f"world 1: w differs from phase 5's: {rel:.3e}")
+    return launches
+
+
+def phase_mp_driver(train_dir, val_dir, root, dev, smi):
+    """Phase 17, the driver leg (on phase 9's files, one lambda): the GLM
+    driver with ``--num-processes 1 --process-id 0 --coordinator-address``
+    writes a model byte-identical to the same run without the flags.
+    Returns the flagged run's launches."""
+    import filecmp
+    import os
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    base = ["--train-data", train_dir, "--validation-data", val_dir,
+            "--input-format", "avro", "--hash-dim", str(DRIVER_HASH_DIM),
+            "--reg-weights", "1", "--optimizer", "lbfgs", "--max-iters",
+            str(ITERS), "--tolerance", "0", "--evaluators", "auc",
+            "--device", str(dev)]
+    runs = {"one_process": [],
+            "num_processes_1": ["--num-processes", "1", "--process-id", "0",
+                                "--coordinator-address",
+                                f"127.0.0.1:{_free_port()}"]}
+    out, launches = {}, {}
+    for name, flags in runs.items():
+        out[name] = os.path.join(root, f"out_mp_{name}")
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t0 = time.perf_counter()
+        rc = glm_driver.main(base + flags + ["--output-dir", out[name]])
+        torch.cuda.synchronize()
+        launches[name] = multiply_prefix_sum.launches
+        if rc != 0:
+            raise RuntimeError(f"glm_driver {name} exited with {rc}")
+        with open(os.path.join(out[name], "photon.log.jsonl")) as f:
+            start = json.loads(f.readline())
+        print(f"phase 17 driver leg, glm_driver {name}: "
+              f"{time.perf_counter() - t0:.3f} s, {launches[name]} launches, "
+              f"distributed={start['distributed']}, on {smi}")
+    sub = os.path.join("best", "fixed-effect", "global")
+    a, b = (os.path.join(out[n], sub) for n in runs)
+    names = sorted(os.listdir(a))
+    match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    print(f"  model files with --num-processes 1 equal the run without the "
+          f"flags byte for byte: {match} (differ: {mismatch + errors})")
+    if mismatch or errors or not match:
+        raise RuntimeError(f"--num-processes 1 model differs: {mismatch} "
+                           f"{errors}")
+    if launches["num_processes_1"] != launches["one_process"]:
+        raise RuntimeError(f"driver launches differ: {launches}")
+    return launches["num_processes_1"]
+
+
+def mp_check_gloo_cuda(dev):
+    """gloo's all_reduce (sum, min, max) and all_gather on CUDA float32
+    and float64 tensors, every rank holding rank + 1."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    for dtype in (torch.float32, torch.float64):
+        for op, want in ((dist.ReduceOp.SUM, world * (world + 1) / 2),
+                         (dist.ReduceOp.MIN, 1.0),
+                         (dist.ReduceOp.MAX, float(world))):
+            x = torch.full((5,), rank + 1.0, dtype=dtype, device=dev)
+            dist.all_reduce(x, op=op)
+            if not bool((x == want).all()):
+                raise RuntimeError(f"gloo all_reduce {op} {dtype}: {x}")
+        parts = [torch.empty(3, dtype=dtype, device=dev)
+                 for _ in range(world)]
+        dist.all_gather(parts, torch.full((3,), rank + 1.0, dtype=dtype,
+                                          device=dev))
+        if [float(p[0]) for p in parts] != [r + 1.0 for r in range(world)]:
+            raise RuntimeError(f"gloo all_gather {dtype}: {parts}")
+
+
+def mp_rank(rank: int, root: str) -> int:
+    """Phase 17 (b) and (c), one rank of MP_WORLD on the one card: a gloo
+    group (NCCL refuses two ranks on one device) through a FileStore in
+    ``root``, the collectives on CUDA tensors. Writes ``rank{r}.json``
+    (the printed lines and the counts) and ``rank{r}.npz`` (every fit's
+    ``w``, the GAME sweep's coefficients and auc)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.game.data import HostSparse
+    from photon_ml_tpu_torch.ops import kernel_build
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.objective import make_objective
+    from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+    from photon_ml_tpu_torch.parallel.data_parallel import (
+        build_csc, fit_shard,
+    )
+    from photon_ml_tpu_torch.parallel.mesh import (
+        make_mesh, mesh_device, shard_batch,
+    )
+    from photon_ml_tpu_torch.parallel.multihost import process_span
+    from photon_ml_tpu_torch.parallel.streaming import (
+        fit_streaming, make_host_chunks,
+    )
+    from photon_ml_tpu_torch.types import LabeledBatch, SparseFeatures
+
+    t_start = time.perf_counter()
+    kernel_build.load_library()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(root, "store"), MP_WORLD),
+        rank=rank, world_size=MP_WORLD,
+        timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    lines, counts, arrays = [], {}, {}
+
+    def say(msg):
+        lines.append(f"  rank {rank}: {msg}")
+
+    mesh = make_mesh({"data": MP_WORLD})
+    dev = mesh_device(mesh)
+    mp_check_gloo_cuda(dev)
+    say(f"gloo group up {time.perf_counter() - t_start:.2f} s after start; "
+        f"all_reduce (sum/min/max) and all_gather on CUDA float32 and "
+        f"float64 tensors checked; device {dev}")
+
+    # (b) phase 5's rows, written by the parent; this rank keeps its block
+    idx = np.load(os.path.join(root, "indices.npy"), mmap_mode="c")
+    y = np.load(os.path.join(root, "labels.npy"))
+    n = y.shape[0]
+    batch = LabeledBatch(SparseFeatures(torch.from_numpy(idx), None, DIM),
+                         torch.from_numpy(y), torch.zeros(n),
+                         torch.ones(n))
+    obj = make_objective("logistic")
+    # shard once and fit the block, as the GLM driver and the path solver
+    # do: the timed fits move no rows from the host
+    t0 = time.perf_counter()
+    block = shard_batch(batch, mesh)
+    csc = build_csc(block)
+    torch.cuda.synchronize()
+    say(f"row block of {block.num_examples} rows to the card and its CSC "
+        f"view in {time.perf_counter() - t0:.3f} s")
+    del batch
+
+    def fit(optimizer, iters):
+        return fit_shard(
+            obj, block, torch.zeros(DIM, device=dev), l2=1.0,
+            optimizer=optimizer,
+            config=OptimizerConfig(max_iters=iters, tolerance=0.0),
+            sparse_grad="csc_kernel", precomputed_csc=csc, mesh=mesh)
+
+    for name, optimizer, iters in (("lbfgs_margin", "lbfgs", ITERS),
+                                   ("tron", "tron", TRON_ITERS)):
+        fit(optimizer, 1)  # warm-up
+        res, sec, launches = run_counted(lambda: fit(optimizer, iters))
+        with _CollectiveClock() as clock:
+            fit(optimizer, iters)
+        say(f"fit {name} csc_kernel, mesh data={MP_WORLD}: {res.iterations} "
+            f"iterations, {launches} launches, {res.host_syncs} host reads, "
+            f"{sec:.4f} s; {clock.calls} collectives, {clock.seconds:.4f} s "
+            f"in them (timed repeat)")
+        counts[name] = dict(launches=launches, iterations=res.iterations,
+                            host_reads=res.host_syncs, seconds=sec,
+                            collective_s=clock.seconds,
+                            collectives=clock.calls)
+        if optimizer == "tron":
+            counts[name]["accepted"] = tron_accepted(res, N_ROWS)
+        arrays[f"{name}_w"] = res.w.cpu().numpy()
+    del block, csc
+
+    s0, s1 = process_span(n)
+    chunks, _ = make_host_chunks(HostSparse(idx[s0:s1], None, DIM), y[s0:s1],
+                                 chunk_rows=STREAM_CHUNK_ROWS)
+    res, sec, launches = run_counted(lambda: fit_streaming(
+        obj, chunks, DIM, torch.zeros(DIM, device=dev), l2=1.0,
+        config=OptimizerConfig(max_iters=ITERS, tolerance=0.0),
+        prefetch_depth=STREAM_DEPTH, sparse_grad="csc_kernel", device=dev))
+    st = res.stream_stats
+    say(f"fit stream_lbfgs_margin over rows [{s0}, {s1}) in {len(chunks)} "
+        f"chunks: {res.iterations} iterations, {st['kernel_passes']} kernel "
+        f"passes, {launches} launches, {st['host_reads']} host reads, "
+        f"{sec:.3f} s, comm_s {st['comm_s']:.4f} (transfer_s "
+        f"{st['transfer_s']:.4f}, stall_s {st['stall_s']:.4f})")
+    if launches != len(chunks) * st["kernel_passes"]:
+        raise RuntimeError(f"rank {rank} streamed: {launches} launches for "
+                           f"{st['kernel_passes']} passes of {len(chunks)} "
+                           "chunks")
+    counts["stream_lbfgs_margin"] = dict(
+        launches=launches, iterations=res.iterations, chunks=len(chunks),
+        kernel_passes=st["kernel_passes"], host_reads=st["host_reads"],
+        seconds=sec, collective_s=st["comm_s"])
+    arrays["stream_lbfgs_margin_w"] = res.w.cpu().numpy()
+    del chunks, idx
+
+    # (c) phase 12's data and coordinates, the random coordinates sharded
+    t0 = time.perf_counter()
+    train, val = make_game_data(GAME_ROWS, GAME_VAL_ROWS, SEED)
+    emesh = make_mesh({"data": 1, "entity": MP_WORLD})
+    est = GameEstimator(task="logistic", n_iterations=1, evaluators=["auc"],
+                        mesh=emesh)
+    torch.cuda.synchronize()
+    multiply_prefix_sum.launches = 0
+    result = est.fit(train, val, [game_configs()])[0]
+    torch.cuda.synchronize()
+    launches = multiply_prefix_sum.launches
+    auc = result.history[-1]["auc"]
+    steps = ", ".join(f"{r['coordinate']} {r['seconds']:.3f} s"
+                      for r in result.history)
+    say(f"GAME sweep, mesh data=1 entity={MP_WORLD}: "
+        f"{time.perf_counter() - t0:.2f} s with the bucket build ({steps}), "
+        f"{launches} launches, auc {auc:.6f}")
+    counts["game_cd_entity"] = dict(launches=launches, auc=auc)
+    arrays["game_auc"] = np.asarray(auc)
+    for name in ("per_user", "per_item"):
+        for b, bucket in enumerate(result.model[name].buckets):
+            arrays[f"re_{name}_{b}"] = np.asarray(bucket.coefficients)
+    dist.destroy_process_group()
+    np.savez(os.path.join(root, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump({"lines": lines, "counts": counts}, f)
+    return 0
+
+
+def phase_mp_world2(indices, labels, refs, game_ctx, dev, smi):
+    """Phase 17 (b) and (c): MP_WORLD ranks of this script on the one card
+    (``mp_rank``), then the gates: every rank's ``w`` equal bit for bit,
+    each fit within TOL_FIT of its single-device counterpart in ``refs``
+    (phases 5, 7 and 14), the launch counts; the GAME sweep's coefficients
+    within TOL_MP_RE and its auc within TOL_MP_AUC of a one-rank sweep.
+    Returns the launches by leg and rank."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.estimators import GameEstimator
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as root:
+        t0 = time.perf_counter()
+        np.save(os.path.join(root, "indices.npy"), indices.cpu().numpy())
+        np.save(os.path.join(root, "labels.npy"), labels.cpu().numpy())
+        procs = []
+        for r in range(MP_WORLD):
+            with open(os.path.join(root, f"rank{r}.log"), "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--mp-rank", str(r), root],
+                    stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if time.monotonic() > deadline:
+                failed = "timeout"
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.returncode),
+                          None)
+        if failed is not None:
+            for r in range(MP_WORLD):
+                with open(os.path.join(root, f"rank{r}.log")) as f:
+                    print(f"rank {r} output:\n{f.read()[-4000:]}")
+            raise RuntimeError(f"phase 17: rank {failed} failed, exit codes "
+                               f"{[p.returncode for p in procs]}")
+        print(f"phase 17 (b, c): {MP_WORLD} ranks on one card over gloo, "
+              f"{time.perf_counter() - t0:.2f} s from spawn to exit")
+        out = []
+        for r in range(MP_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+            for line in out[r]["lines"]:
+                print(line)
+        arrays = [dict(np.load(os.path.join(root, f"rank{r}.npz")))
+                  for r in range(MP_WORLD)]
+
+    for key in arrays[0]:
+        if not all(np.array_equal(a[key], arrays[0][key])
+                   for a in arrays[1:]):
+            raise RuntimeError(f"phase 17: ranks differ in {key}")
+    print(f"  every rank's {len(arrays[0])} arrays equal bit for bit "
+          f"({', '.join(k for k in arrays[0] if k.endswith('_w'))}, the "
+          f"GAME coefficients and auc)")
+    counts = [o["counts"] for o in out]
+    for name in ("lbfgs_margin", "tron", "stream_lbfgs_margin"):
+        rel = rel_l2(torch.from_numpy(arrays[0][f"{name}_w"]),
+                     refs[name]["w"].cpu())
+        print(f"  {name}: |w - w_single| / |w_single| = {rel:.3e} (tol "
+              f"{TOL_FIT}); single device {refs[name]['launches']} launches")
+        if not rel <= TOL_FIT:
+            raise RuntimeError(f"phase 17 {name}: {rel:.3e} from the "
+                               "single-device fit")
+    for c in counts:
+        if c["lbfgs_margin"]["launches"] != ITERS + 1:
+            raise RuntimeError(f"phase 17 lbfgs launches: {c}")
+        # TRON's cost model on one device: one launch per gradient (the
+        # first and one per iteration), CG step (one host read each, with
+        # one more read per iteration) and preconditioner pass (the first
+        # and one per accepted step), so launches = 2 + host reads +
+        # accepted steps, with the accepted steps read from each fit's loss
+        # history; a step at actred ~ eta0 * prered may be accepted on one
+        # device and rejected on two (their float32 sums round apart), so
+        # each side is held to the model exactly, not to phase 7's count
+        t, t1 = c["tron"], refs["tron"]
+        implied = t["launches"] - t["host_reads"] - 2
+        implied1 = t1["launches"] - t1["host_reads"] - 2
+        print(f"  tron: {t['launches']} launches = 2 + {t['host_reads']} host "
+              f"reads + {implied} steps, {t['accepted']} accepted of "
+              f"{t['iterations']} iterations (single device: "
+              f"{t1['launches']} = 2 + {t1['host_reads']} + {implied1}, "
+              f"{t1['accepted']} accepted of {t1['iterations']})")
+        if not (implied == t["accepted"] and implied1 == t1["accepted"]):
+            raise RuntimeError(f"phase 17 tron launches: {t} vs {t1}")
+        stream = c["stream_lbfgs_margin"]
+        if stream["chunks"] * MP_WORLD != N_ROWS // STREAM_CHUNK_ROWS:
+            raise RuntimeError(f"phase 17 stream chunks: {stream}")
+
+    # (c) against one sweep on one rank over the same data and buckets
+    ref = GameEstimator(task="logistic", n_iterations=1, evaluators=["auc"],
+                        device=dev).fit(game_ctx["train"], game_ctx["val"],
+                                        [game_configs()],
+                                        dataset_cache=game_ctx["cache"])[0]
+    worst = 0.0
+    for name in ("per_user", "per_item"):
+        for b, bucket in enumerate(ref.model[name].buckets):
+            got = arrays[0][f"re_{name}_{b}"]
+            worst = max(worst, float(np.abs(
+                got - np.asarray(bucket.coefficients)).max(initial=0.0)))
+    auc_ref = ref.history[-1]["auc"]
+    auc = float(arrays[0]["game_auc"])
+    print(f"  GAME, entities sharded over {MP_WORLD} ranks vs one rank: max "
+          f"|coefficient diff| {worst:.3e} (tol {TOL_MP_RE}); auc {auc:.6f} "
+          f"vs {auc_ref:.6f} (tol {TOL_MP_AUC}), on {smi}")
+    if not (worst <= TOL_MP_RE and abs(auc - auc_ref) <= TOL_MP_AUC):
+        raise RuntimeError("phase 17: the entity-sharded sweep differs from "
+                           "the one-rank sweep")
+    return {f"rank{r}": {k: v["launches"] for k, v in c.items()}
+            for r, c in enumerate(counts)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1945,10 +2427,12 @@ def main() -> int:
     if not rel <= TOL_FIT:
         raise RuntimeError(f"kernel fit differs from the plain fit: {rel:.3e}")
 
+    owlqn_launches = phase_owlqn(fit, f0, smi)
+    tron_launches, tron_res = phase_tron(fit, f0, smi)
     launches_by_path = {
         "lbfgs_margin": launches,
-        "owlqn": phase_owlqn(fit, f0, smi),
-        "tron": phase_tron(fit, f0, smi),
+        "owlqn": owlqn_launches,
+        "tron": tron_launches,
         f"lbfgs_full_n{N_SMALL}_d{DIM_SMALL}": phase_full_line_search(
             gen, dev, smi),
     }
@@ -1957,10 +2441,12 @@ def main() -> int:
         obj, indices, labels, batch, csc, res.w, smi, gen, dev, peaks)
     launches_by_path.update(phase_stream_launches)
     launches_by_path["glm_driver"], driver_timing, (
-        launches_by_path["glm_driver_ooc"], ooc_timing) = phase_driver(
+        (launches_by_path["glm_driver_ooc"], ooc_timing),
+        mp_driver_launches) = phase_driver(
         dev, smi, peaks, gen,
-        then=lambda root, train_dir, val_dir: phase_glm_ooc(
-            root, train_dir, val_dir, dev, smi, gen, peaks))
+        then=lambda root, train_dir, val_dir: (
+            phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks),
+            phase_mp_driver(train_dir, val_dir, root, dev, smi)))
     path_launches, path_timing = phase_path(obj, batch, csc, smi, gen, dev,
                                             peaks)
     launches_by_path.update(path_launches)
@@ -1971,6 +2457,25 @@ def main() -> int:
         dev, smi, peaks, gen)
     launches_by_path["game_cd_streaming"] = phase_game_stream(game_ctx, dev,
                                                               smi)
+    # phase 17: multi-process
+    t_mp = time.perf_counter()
+    refs = {"lbfgs_margin": dict(w=res.w, launches=launches),
+            "tron": dict(w=tron_res.w, launches=tron_launches,
+                         iterations=tron_res.iterations,
+                         host_reads=tron_res.host_syncs,
+                         accepted=tron_accepted(tron_res, N_ROWS)),
+            "stream_lbfgs_margin": dict(
+                w=stream_timing["lbfgs_res"].w,
+                launches=launches_by_path["stream_lbfgs_margin"])}
+    launches_by_path["multi_process"] = {
+        "world1_nccl": {"rank0": {"lbfgs_margin": phase_mp_world1(
+            obj, batch, csc, res.w, smi)}},
+        "glm_driver_world1": {"rank0": mp_driver_launches},
+        "world2_gloo": phase_mp_world2(indices, labels, refs, game_ctx, dev,
+                                       smi),
+    }
+    print(f"phase 17: {time.perf_counter() - t_mp:.2f} s (the driver leg "
+          "ran inside phase 9's directory)")
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2016,4 +2521,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mp-rank":
+        sys.exit(mp_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -47,10 +47,46 @@ def load_input_columns(spec) -> InputColumnsNames:
     return InputColumnsNames.from_dict(json_arg(spec))
 
 
+def start_processes(args, device: str) -> bool:
+    """Join the multi-process runtime when ``--coordinator-address``,
+    ``--num-processes`` and ``--process-id`` are given (one process per
+    device; ``device``, the driver's ``--device``, picks the backend).
+    False for one process; bad flags exit with the reason."""
+    from photon_ml_tpu_torch.parallel.multihost import initialize_multihost
+
+    try:
+        return initialize_multihost(args.coordinator_address,
+                                    args.num_processes, args.process_id,
+                                    device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def stop_processes(distributed: bool) -> None:
+    """Leave the runtime :func:`start_processes` joined."""
+    if distributed:
+        torch.distributed.destroy_process_group()
+
+
+def log_path(output_dir: str) -> str:
+    """The structured log: ``photon.log.jsonl`` for rank 0 (the lead), one
+    file per other rank beside it, so that ranks never share a file."""
+    from photon_ml_tpu_torch.parallel.multihost import is_lead, process_index
+
+    name = ("photon.log.jsonl" if is_lead()
+            else f"photon.log.rank-{process_index()}.jsonl")
+    return os.path.join(output_dir, name)
+
+
 def runtime_info(dev: torch.device) -> dict:
-    """The JAX driver's topology keys, for one process on one device."""
-    info = {"process_index": 0, "process_count": 1, "local_devices": 1,
-            "global_devices": 1, "platform": dev.type}
+    """The JAX driver's topology keys: one device per process."""
+    from photon_ml_tpu_torch.parallel.multihost import (
+        process_count, process_index,
+    )
+
+    info = {"process_index": process_index(),
+            "process_count": process_count(), "local_devices": 1,
+            "global_devices": process_count(), "platform": dev.type}
     if dev.type == "cuda":
         info["device_name"] = torch.cuda.get_device_name(dev)
     return info

@@ -1,6 +1,5 @@
 """GAME training driver: the end-to-end training entry point (counterpart of
-``photon_ml_tpu/cli/game_training_driver.py``: its in-memory, single-device
-path).
+``photon_ml_tpu/cli/game_training_driver.py``).
 
 Equivalent of the reference's ``cli.game.training.GameTrainingDriver``
 (SURVEY.md §4.1): parse params, build or load feature index maps, read Avro
@@ -25,8 +24,16 @@ streams it through the device in chunks of ``--chunk-rows`` rows on every
 pass; ``--out-of-core-shards`` never materializes the named shards,
 re-decoding them from disk each pass (or once, with ``--chunk-cache-dir``).
 
+``--coordinator-address HOST:PORT --num-processes N --process-id I`` runs
+one process per device, as the JAX driver does: every process reads the
+data and trains the same model; a streamed fixed coordinate streams each
+process's row span (``--out-of-core-shards``: its
+``AvroChunkSource(process_part=)`` share) with its partials summed across
+processes, a streamed summary reduces its moments across processes, and
+only rank 0 writes the models, checkpoints and feature summaries.
+
 Flags of the JAX driver that select parts of the port not written yet
-(multi-process, entity sharding, recovery, the registry, profiling) are
+(entity sharding, recovery, the registry, profiling) are
 accepted by the parser and raise, naming the ROADMAP item that ports them;
 the settings that only refine those parts (``--recovery-snapshot-every``,
 ``--trace-sample``) are not accepted. The device-loss exit (resume marker, exit code 75) comes with
@@ -56,8 +63,8 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli._common import (
-    json_arg, load_input_columns, positive_int, runtime_info, tol_schedule,
-    write_feature_summary,
+    json_arg, load_input_columns, log_path, positive_int, runtime_info,
+    start_processes, stop_processes, tol_schedule, write_feature_summary,
 )
 from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
@@ -77,21 +84,21 @@ from photon_ml_tpu_torch.ops.normalization import (
 from photon_ml_tpu_torch.ops.statistics import (
     summarize_features, summarize_features_streamed,
 )
+from photon_ml_tpu_torch.parallel.multihost import (
+    allreduce_summary_moments, is_lead, process_count, process_index,
+)
 from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
 from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
 
-_MULTI = "15 and 17 (multi-device and multi-host)"
+_SHARDS = "17 (entity sharding)"
 _RECOVERY = "17 (recovery)"
 _OBSERVABILITY = "20 (observability)"
 # flags of the JAX driver whose code paths are not ported yet, by the
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
-    "coordinator_address": _MULTI,
-    "num_processes": _MULTI,
-    "process_id": _MULTI,
-    "entity_shards": _MULTI,
-    "re_table_budget_mb": _MULTI,
+    "entity_shards": _SHARDS,
+    "re_table_budget_mb": _SHARDS,
     "auto_resume": _RECOVERY,
     "max_rank_failures": _RECOVERY,
     "publish_to": "19 (serving and lifecycle)",
@@ -210,10 +217,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="streamed transfer-ring depth: chunks staged ahead "
                         "of compute (default 2 / PHOTON_PREFETCH_DEPTH; 0 = "
                         "synchronous)")
-    # accepted for parity with the JAX driver; each raises (_DEFERRED)
-    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--coordinator-address", default=None,
+                   help="HOST:PORT of rank 0's rendezvous: one process per "
+                        "device, each started with the same flags")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    # accepted for parity with the JAX driver; each raises (_DEFERRED)
     p.add_argument("--entity-shards", type=positive_int, default=None)
     p.add_argument("--re-table-budget-mb", type=float, default=None)
     p.add_argument("--auto-resume", action="store_true")
@@ -314,16 +323,17 @@ def _check_out_of_core(args, grid, shards, ooc_shards) -> Dict[str, int]:
 
 
 def _out_of_core_sources(args, index_maps, ooc_shards, chunk_rows, columns,
-                         dtype) -> Dict[str, object]:
+                         dtype, part=None) -> Dict[str, object]:
     """One disk-backed chunk source per out-of-core shard, behind a
     decode-once cache with ``--chunk-cache-dir`` (the first streamed pass,
-    the summarization or the first fit pass, pays the decode)."""
+    the summarization or the first fit pass, pays the decode). ``part``:
+    this process's ``(index, count)`` block share, or None."""
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     sources = {
         s: AvroChunkSource(args.train_data, index_maps[s],
                            chunk_rows=chunk_rows.get(s, args.chunk_rows),
                            columns=columns, pad_nnz=args.pad_nnz,
-                           dtype=np_dtype)
+                           dtype=np_dtype, process_part=part)
         for s in sorted(ooc_shards)}
     if args.chunk_cache_dir:
         cache_bytes = (None if args.chunk_cache_gb is None
@@ -372,12 +382,21 @@ def _build_index_maps(args, columns, shards) -> Dict[str, IndexMap]:
 
 def _run(args) -> int:
     dev = resolve_device(args.device)
+    distributed = start_processes(args, dev.type)
+    try:
+        return _train(args, dev, distributed)
+    finally:
+        stop_processes(distributed)
+
+
+def _train(args, dev: torch.device, distributed: bool) -> int:
+    lead = is_lead()
     dtype = resolve_dtype(args.dtype)
     task = TASK_TO_LOSS.get(args.task, args.task)
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = PhotonLogger(os.path.join(args.output_dir, "photon.log.jsonl"))
+    logger = PhotonLogger(log_path(args.output_dir))
     logger.log("driver_start", driver="game_training", args=vars(args),
-               distributed=False, **runtime_info(dev))
+               distributed=distributed, **runtime_info(dev))
 
     columns = load_input_columns(args.input_columns)
     grid = _load_coordinate_grid(args.coordinates)
@@ -438,8 +457,12 @@ def _run(args) -> int:
             {s: m for s, m in index_maps.items() if s not in ooc_shards},
             entity_columns, columns)
         if ooc_shards:
+            # multi-process: each process keeps its own block share;
+            # scores reassemble through the recorded part spans
             train.feature_sources = _out_of_core_sources(
-                args, index_maps, ooc_shards, ooc_chunk_rows, columns, dtype)
+                args, index_maps, ooc_shards, ooc_chunk_rows, columns, dtype,
+                part=((process_index(), process_count())
+                      if distributed else None))
     validation = None
     if args.validation_data:
         with Timed(logger, "read_validation_data"):
@@ -457,12 +480,15 @@ def _run(args) -> int:
                 if shard in ooc_shards:
                     # one extra streamed pass over the disk-backed shard
                     src = train.feature_sources[shard]
-                    summary = summarize_features_streamed(src, src.dim,
-                                                          src.rows)
+                    summary = summarize_features_streamed(
+                        src, src.dim, src.rows,
+                        total_rows=getattr(src, "total_rows", src.rows),
+                        part_reduce=(allreduce_summary_moments
+                                     if distributed else None))
                 else:
                     summary = _summarize_resident(train.features[shard],
                                                   train.labels, dev)
-                if args.summarize_features:
+                if args.summarize_features and lead:
                     name = ("feature-summary.avro" if shard == "global"
                             else f"feature-summary.{shard}.avro")
                     write_feature_summary(args.output_dir, summary,
@@ -492,7 +518,7 @@ def _run(args) -> int:
         solver_tol_schedule=args.solver_tol_schedule,
     )
     ckpt = None
-    if args.checkpoint:
+    if args.checkpoint and lead:
         def ckpt(gi, it, model):
             path = os.path.join(args.output_dir, "checkpoints",
                                 f"config-{gi}-iter-{it}")
@@ -531,9 +557,11 @@ def _run(args) -> int:
 
     best = estimator.select_best(results)
     with Timed(logger, "save_models"):
-        save_game_model(best.model, os.path.join(args.output_dir, "best"),
-                        index_maps)
-        if args.save_all_models:
+        # every process reaches the same model; only the lead writes it
+        if lead:
+            save_game_model(best.model, os.path.join(args.output_dir, "best"),
+                            index_maps)
+        if args.save_all_models and lead:
             for gi, r in enumerate(results):
                 save_game_model(
                     r.model,

@@ -1,5 +1,5 @@
 """Classic (non-GAME) GLM training driver — the staged pipeline (counterpart
-of ``photon_ml_tpu/cli/glm_driver.py``: its in-memory, single-device path).
+of ``photon_ml_tpu/cli/glm_driver.py``).
 
 A fixed sequence of stages for a single fixed-effect GLM: read → index →
 validate → summarize/normalize → train one model per regularization weight
@@ -28,8 +28,18 @@ materializes it, re-decoding Avro block waves from disk each pass
 (``io.chunk_cache.ChunkCacheSource``). Each chunk's gradient goes through
 the same kernel.
 
+``--coordinator-address HOST:PORT --num-processes N --process-id I`` runs
+one process per device (``parallel.multihost.initialize_multihost``):
+every process reads the data; the in-memory fit shards its rows over the
+world (``parallel.mesh``), ``--streaming`` streams each process's
+``process_span`` and ``--out-of-core`` each process's
+``AvroChunkSource(process_part=)`` share, their partials summed across
+processes. Every process reaches the same models; only rank 0 writes
+them (and the diagnostics and feature summary), and each other rank logs
+to its own ``photon.log.rank-I.jsonl``.
+
 Flags of the JAX driver that select parts of the port not written yet
-(multi-process, recovery, profiling) are accepted by the parser and raise,
+(recovery, profiling) are accepted by the parser and raise,
 naming the ROADMAP item that ports them; the settings that only refine
 those parts are not accepted.
 
@@ -52,7 +62,8 @@ import torch
 
 from photon_ml_tpu_torch import diagnostics
 from photon_ml_tpu_torch.cli._common import (
-    runtime_info, tol_schedule, write_feature_summary,
+    log_path, runtime_info, start_processes, stop_processes, tol_schedule,
+    write_feature_summary,
 )
 from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
@@ -84,7 +95,14 @@ from photon_ml_tpu_torch.optimize import (
 )
 from photon_ml_tpu_torch.optimize.path import PathSolver
 from photon_ml_tpu_torch.parallel.data_parallel import (
-    build_csc, fit_distributed, resolve_sparse_grad,
+    build_csc, distributed_coefficient_variances, fit_shard,
+    resolve_sparse_grad,
+)
+from photon_ml_tpu_torch.parallel.mesh import (
+    make_mesh, mesh_device, shard_batch,
+)
+from photon_ml_tpu_torch.parallel.multihost import (
+    is_lead, process_count, process_index, process_span,
 )
 from photon_ml_tpu_torch.parallel.streaming import (
     fit_streaming, make_host_chunks, streaming_coefficient_variances,
@@ -98,9 +116,6 @@ from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
-    "coordinator_address": "15 and 17 (multi-device and multi-host)",
-    "num_processes": "15 and 17 (multi-device and multi-host)",
-    "process_id": "15 and 17 (multi-device and multi-host)",
     "auto_resume": "17 (recovery)",
     "max_rank_failures": "17 (recovery)",
     "profile_dir": "20 (observability)",
@@ -199,12 +214,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="streamed transfer-ring depth: chunks staged ahead "
                         "of compute (default 2 / PHOTON_PREFETCH_DEPTH; 0 = "
                         "synchronous)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="HOST:PORT of rank 0's rendezvous: one process per "
+                        "device, each started with the same flags")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     # accepted for parity with the JAX driver; each raises (_DEFERRED)
     p.add_argument("--auto-resume", action="store_true")
     p.add_argument("--max-rank-failures", type=int, default=0)
-    p.add_argument("--coordinator-address", default=None)
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--trace-dir", default=None)
     return p
@@ -288,12 +305,25 @@ def main(argv: Sequence[str] | None = None) -> int:
 
 def _run(args) -> int:
     dev = resolve_device(args.device)
+    distributed = start_processes(args, dev.type)
+    try:
+        return _train(args, dev, distributed)
+    finally:
+        stop_processes(distributed)
+
+
+def _train(args, dev: torch.device, distributed: bool) -> int:
+    mesh = None
+    if distributed:
+        mesh = make_mesh({"data": process_count()}, device_type=dev.type)
+        dev = mesh_device(mesh)
+    lead = is_lead()
     dtype = resolve_dtype(args.dtype)
     task = TASK_TO_LOSS.get(args.task, args.task)
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = PhotonLogger(os.path.join(args.output_dir, "photon.log.jsonl"))
+    logger = PhotonLogger(log_path(args.output_dir))
     logger.log("driver_start", driver="glm", args=vars(args),
-               distributed=False, **runtime_info(dev))
+               distributed=distributed, **runtime_info(dev))
 
     reg = RegularizationContext(args.reg_type, alpha=args.elastic_net_alpha)
     optimizer = args.optimizer
@@ -349,10 +379,13 @@ def _run(args) -> int:
                     min_count=args.min_feature_count,
                 )
         if out_of_core:
+            # multi-process: each process keeps its own block share
             src = AvroChunkSource(
                 args.train_data, index_map, chunk_rows=args.chunk_rows,
                 pad_nnz=args.pad_nnz,
-                dtype=torch.empty((), dtype=dtype).numpy().dtype)
+                dtype=torch.empty((), dtype=dtype).numpy().dtype,
+                process_part=((process_index(), process_count())
+                              if distributed else None))
             if args.chunk_cache_dir:
                 src = ChunkCacheSource(
                     src, args.chunk_cache_dir,
@@ -398,17 +431,28 @@ def _run(args) -> int:
     # -- stage: summarize + normalization ------------------------------------
     streaming = args.streaming or out_of_core
     dim = index_map.size if out_of_core else host_feats.dim
+    fit_batch = None
     if out_of_core:
         chunks, batch = src, None
     elif streaming:
         # the training set stays in host RAM; only fixed-shape chunks ever
-        # reach the device
-        chunks, _ = make_host_chunks(host_feats, labels, offsets, weights,
+        # reach the device, each process streaming its own row span
+        s0, s1 = process_span(labels.shape[0])
+        local = HostSparse(host_feats.indices[s0:s1],
+                           host_feats.values[s0:s1], host_feats.dim)
+        chunks, _ = make_host_chunks(local, labels[s0:s1], offsets[s0:s1],
+                                     weights[s0:s1],
                                      chunk_rows=args.chunk_rows)
         batch = LabeledBatch(host_feats, labels, offsets, weights)
-    else:
+    elif distributed:
+        # every process holds the whole batch on the host and fits on its
+        # own row block on its device
         batch = _device_batch(host_feats, labels, offsets, weights, dtype,
-                              dev)
+                              torch.device("cpu"))
+        fit_batch = shard_batch(batch, mesh)
+    else:
+        batch = fit_batch = _device_batch(host_feats, labels, offsets,
+                                          weights, dtype, dev)
     validation_batch = None
     if validation is not None:
         validation_batch = _device_batch(vhost, vlabels, voffsets, vweights,
@@ -418,7 +462,7 @@ def _run(args) -> int:
     if norm_type != NormalizationType.NONE or args.summarize_features:
         with Timed(logger, "feature_summarization"):
             summary = summarize_features(batch)
-            if args.summarize_features:
+            if args.summarize_features and lead:
                 write_feature_summary(args.output_dir, summary, index_map)
             if norm_type != NormalizationType.NONE:
                 normalization = build_normalization_context(
@@ -442,7 +486,7 @@ def _run(args) -> int:
     if not streaming:
         sparse_grad = resolve_sparse_grad("auto", batch.features)
         if sparse_grad.startswith("csc"):
-            grid_csc = build_csc(batch,
+            grid_csc = build_csc(fit_batch,
                                  with_cols=sparse_grad == "csc_segment")
 
     path_solver = None
@@ -462,7 +506,7 @@ def _run(args) -> int:
             path_solver = PathSolver(
                 objective, reg, batch=batch, optimizer=optimizer,
                 config=opt_config, path_config=pcfg,
-                precomputed_csc=grid_csc)
+                precomputed_csc=grid_csc, mesh=mesh)
 
     results = []
     w = torch.zeros((dim,), dtype=dtype, device=dev)
@@ -484,11 +528,11 @@ def _run(args) -> int:
                     optimizer=optimizer, config=run_config, dtype=dtype,
                     prefetch_depth=args.prefetch_depth, device=dev)
             else:
-                res = fit_distributed(
-                    objective, batch, w,
+                res = fit_shard(
+                    objective, fit_batch, w,
                     l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
                     optimizer=optimizer, config=run_config,
-                    precomputed_csc=grid_csc,
+                    precomputed_csc=grid_csc, mesh=mesh,
                 )
             w = res.w  # warm start the next lambda
             diag = {
@@ -529,9 +573,9 @@ def _run(args) -> int:
                         l2=reg.l2_weight(lam), dtype=dtype,
                         prefetch_depth=args.prefetch_depth, device=dev)
                 else:
-                    variances = objective.coefficient_variances(
-                        res.w, batch, reg.l2_weight(lam)
-                    )
+                    variances = distributed_coefficient_variances(
+                        objective, mesh=mesh)(res.w, fit_batch,
+                                              reg.l2_weight(lam))
             results.append((lam, res, metrics, variances))
             logger.log("lambda_trained", **diag)
 
@@ -544,7 +588,7 @@ def _run(args) -> int:
                          results[best_i][2][evaluators[0]]):
                 best_i = i
 
-    if args.diagnostics:
+    if args.diagnostics and lead:
         lam_best, res_best, _, _ = results[best_i]
         report = {"reg_weight": lam_best}
         inverse = index_map.inverse()
@@ -568,8 +612,10 @@ def _run(args) -> int:
                 probs, vlabels)
         if args.bootstrap_replicates > 0 and not streaming:
             with Timed(logger, "bootstrap"):
+                boot_batch = (batch if not distributed else _device_batch(
+                    host_feats, labels, offsets, weights, dtype, dev))
                 boot = diagnostics.bootstrap_coefficients(
-                    objective, batch, res_best.w,
+                    objective, boot_batch, res_best.w,
                     l2=reg.l2_weight(lam_best),
                     n_replicates=args.bootstrap_replicates,
                 )
@@ -585,8 +631,10 @@ def _run(args) -> int:
                    hosmer_lemeshow=report.get("hosmer_lemeshow"))
 
     # -- stage: model output -------------------------------------------------
+    # every process reaches the same models; only the lead writes them
     with Timed(logger, "save_models"):
-        for i, (lam, res, metrics, variances) in enumerate(results):
+        for i, (lam, res, metrics, variances) in enumerate(
+                results if lead else ()):
             model = GameModel(
                 {"global": FixedEffectModel(
                     GeneralizedLinearModel(

@@ -7,8 +7,9 @@ evaluates each on validation, and returns every (model, results, configs)
 triple; ``select_best`` picks by the primary evaluator.
 ``GameTransformer.transform`` scores a dataset with a model.
 ``GlmPathEstimator`` walks a lambda grid through one shared
-``optimize.path.PathSolver``. Each takes ``device`` (default ``cuda``) in
-place of the JAX package's ``mesh``.
+``optimize.path.PathSolver``. Each takes ``device`` (default ``cuda``);
+the two estimators also take the JAX package's ``mesh``
+(``parallel.mesh.make_mesh``), whose device then is the default.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optimize import OptimizerConfig, PathConfig
 from photon_ml_tpu_torch.optimize.path import PathSolver
 from photon_ml_tpu_torch.types import resolve_device
+
+
+def _device(device, mesh) -> torch.device:
+    """``device``, else the mesh's device for this rank, else ``cuda``."""
+    if device is None and mesh is not None:
+        from photon_ml_tpu_torch.parallel.mesh import mesh_device
+
+        return mesh_device(mesh)
+    return resolve_device(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +84,8 @@ class GlmPathEstimator:
     states. ``fit`` takes an in-memory ``LabeledBatch`` on ``device``, or
     host ``chunks`` (with ``dim``) streamed through ``device`` in
     ``dtype``; the grid is solved in the order given (decreasing lambda
-    screens best)."""
+    screens best). With ``mesh``, every rank passes the same whole batch
+    (or its own rows as ``chunks``) and the solver shards it by rows."""
 
     def __init__(
         self,
@@ -88,6 +99,7 @@ class GlmPathEstimator:
         config: Optional[OptimizerConfig] = None,
         path_config: Optional[PathConfig] = None,
         dtype=torch.float32,
+        mesh=None,
     ):
         self.task = task
         self.dtype = dtype
@@ -95,7 +107,8 @@ class GlmPathEstimator:
         self.optimizer = optimizer
         self.evaluator_names = list(evaluators)
         self.intercept_index = intercept_index
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _device(device, mesh)
         self.config = config if config is not None else OptimizerConfig()
         self.path_config = (path_config if path_config is not None
                             else PathConfig())
@@ -105,7 +118,8 @@ class GlmPathEstimator:
         """The shared PathSolver, built on first use and pinned to the
         first dataset seen."""
         if self._solver is None:
-            if batch is not None and batch.device != self.device:
+            if (batch is not None and self.mesh is None
+                    and batch.device != self.device):
                 raise ValueError(f"the batch lies on {batch.device}, the "
                                  f"estimator's device is {self.device}")
             objective = make_objective(
@@ -114,7 +128,7 @@ class GlmPathEstimator:
                 objective, self.reg, batch=batch, chunks=chunks, dim=dim,
                 optimizer=self.optimizer, config=self.config,
                 path_config=self.path_config, dtype=self.dtype,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         return self._solver
 
     def fit(
@@ -176,10 +190,11 @@ class GameEstimator:
         self.task = task
         self.n_iterations = n_iterations
         self.evaluator_names = list(evaluators)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _device(device, mesh)
         # not ported yet: CoordinateDescent raises, naming the ROADMAP item
         self._deferred = dict(
-            mesh=mesh, entity_shard=entity_shard,
+            entity_shard=entity_shard,
             entity_table_budget_bytes=entity_table_budget_bytes,
             recovery=recovery)
         self.dtype = dtype
@@ -218,7 +233,7 @@ class GameEstimator:
                 verbose=self.verbose, dataset_cache=dataset_cache,
                 cd_tolerance=self.cd_tolerance,
                 solver_tol_schedule=self.solver_tol_schedule,
-                device=self.device, **self._deferred)
+                device=self.device, mesh=self.mesh, **self._deferred)
             ckpt = None
             if checkpoint_callback is not None:
                 def ckpt(it, model, gi=gi):

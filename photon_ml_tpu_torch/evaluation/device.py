@@ -1,5 +1,5 @@
 """On-device evaluation metrics (counterpart of
-``photon_ml_tpu/evaluation/device.py``), on one device.
+``photon_ml_tpu/evaluation/device.py``).
 
 The host evaluators (``evaluators.py``) are exact float64 references; these
 keep the score vector on the device:
@@ -17,8 +17,16 @@ package, and may differ in the last bits between runs on CUDA.
 
 Entry points take numpy arrays or tensors. Tensors stay on their device;
 numpy inputs, and everything an evaluator is called with, go to ``device``
-(default ``cuda``). The JAX package's ``mesh`` argument is accepted only
-as None: these functions run on one device.
+(default ``cuda``).
+
+With a mesh (``parallel.mesh.make_mesh``) of more than one rank, every
+rank passes the same whole score vector and AUC is the shardable
+:func:`histogram_auc`: each rank takes its own contiguous block of the
+rows, the global ``lo``/``hi`` are all-reduced (MIN, MAX), then the two
+histograms (SUM), over the mesh's ``axis``. The blocks are
+``multihost.span_of`` spans, uneven where the rows do not divide, so no
+padding row enters a histogram or the score range. The pointwise and
+grouped evaluators read the whole vector on every rank.
 """
 
 from __future__ import annotations
@@ -57,10 +65,8 @@ def _on_device(fn, dev: torch.device) -> Callable:
     return f
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise ValueError("device evaluation runs on one device; pass "
-                         "mesh=None")
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.size() > 1
 
 
 def _run_lengths(sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -134,16 +140,41 @@ def histogram_auc_from_hists(pos_hist, neg_hist) -> torch.Tensor:
 
 def histogram_auc(scores, labels, weights=None, n_bins: int = 4096,
                   mesh=None, axis=None, device=None) -> torch.Tensor:
-    """Histogram AUC over the whole score vector (``axis`` is the JAX
-    package's mesh axis and is unused here)."""
-    _no_mesh(mesh)
+    """Histogram AUC over the whole score vector. With a mesh, every rank
+    passes the whole vector and bins its own block of rows over ``axis``
+    (default: ``"data"``, else the mesh's first axis); the score range and
+    then the histograms are all-reduced, so every rank returns the same
+    value."""
     scores, labels, weights = _inputs(scores, labels, weights, device)
-    lo = torch.min(scores)
-    hi = torch.max(scores)
+    if mesh is None:
+        lo = torch.min(scores)
+        hi = torch.max(scores)
+    else:
+        import torch.distributed as dist
+
+        from photon_ml_tpu_torch.parallel.multihost import span_of
+
+        names = mesh.mesh_dim_names
+        group = mesh.get_group(axis or ("data" if "data" in names
+                                        else names[0]))
+        s0, s1 = span_of(scores.shape[0], dist.get_rank(group),
+                         dist.get_world_size(group))
+        scores, labels, weights = (scores[s0:s1], labels[s0:s1],
+                                   weights[s0:s1])
+        inf = torch.full((1,), float("inf"), dtype=scores.dtype,
+                         device=scores.device)
+        # MIN then MAX: the global range every rank bins over
+        lo = torch.min(scores).reshape(1) if s1 > s0 else inf
+        hi = torch.max(scores).reshape(1) if s1 > s0 else -inf
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        lo, hi = lo[0], hi[0]
     hi = torch.where(hi > lo, hi, lo + 1.0)
-    ph, nh = histogram_auc_contrib(scores, labels, weights, lo, hi,
-                                   n_bins=n_bins)
-    return histogram_auc_from_hists(ph, nh)
+    hists = torch.stack(histogram_auc_contrib(scores, labels, weights, lo,
+                                              hi, n_bins=n_bins))
+    if mesh is not None:
+        dist.all_reduce(hists, op=dist.ReduceOp.SUM, group=group)
+    return histogram_auc_from_hists(hists[0], hists[1])
 
 
 def _logistic_point(s, l):
@@ -174,13 +205,16 @@ def make_device_evaluator(name: str, mesh=None,
     ``cuda``), or None when the metric has no device form (grouped
     variants: :func:`make_grouped_device_evaluator`).
 
-    AUC is the exact :func:`device_auc`; the pointwise losses mirror the
-    definitions of ``evaluators.py``. Final reported metrics should still
-    come from the host float64 evaluators."""
-    _no_mesh(mesh)
+    AUC is the exact :func:`device_auc` on one device and the shardable
+    :func:`histogram_auc` over a mesh of more than one rank; the pointwise
+    losses mirror the definitions of ``evaluators.py``. Final reported
+    metrics should still come from the host float64 evaluators."""
     dev = resolve_device(device)
     key = name.lower()
     if key == "auc":
+        if _multi(mesh):
+            return _on_device(
+                lambda s, l, w: histogram_auc(s, l, w, mesh=mesh), dev)
         return _on_device(device_auc, dev)
     if key in _POINTWISE:
         point = _POINTWISE[key]
@@ -221,8 +255,8 @@ def make_grouped_device_evaluator(name: str, group_ids, mesh=None,
     segment sums on ``device``, default ``cuda``). Returns
     ``(scores, labels, weights) -> 0-d tensor`` mirroring the host
     ``grouped_fn`` + finite-mean aggregation, or None when the metric has
-    no grouped device form."""
-    _no_mesh(mesh)
+    no grouped device form. With a mesh, as in the JAX package, each rank
+    evaluates the whole score vector it holds (no collective)."""
     key = name.lower()
     if not key.startswith("per_group_"):
         return None

@@ -1,5 +1,5 @@
 """GAME coordinate descent: the training algorithm (counterpart of
-``photon_ml_tpu/game/descent.py``: its in-memory, single-device path).
+``photon_ml_tpu/game/descent.py``).
 
 An outer loop over iterations x coordinates, sequential by design; per
 coordinate, the offsets fed to training are ``base + total_scores - this
@@ -7,7 +7,8 @@ coordinate's scores`` (the residual trick), the coordinate retrains
 warm-started from its previous model, then its scores are recomputed and
 validation metrics tracked.
 
-Everything runs on one device (``device``, default ``cuda``). A fixed
+Everything runs on one device per process (``device``, default ``cuda``,
+or the mesh's device). A fixed
 effect over sparse features takes the column-sorted gradient path: its
 ``CSCTranspose`` is built once per coordinate, and every gradient and TRON
 Hessian-vector product of its fits goes through the resolved ``sparse_grad``
@@ -24,8 +25,25 @@ host, and each CD step's residual offsets ride over it through
 Optimizer-space coefficients (normalization folded into the objective)
 stay internal; scoring and saved models use model-space coefficients.
 
-Not ported yet, each raising and naming its ROADMAP item: a mesh (15),
-entity sharding, the entity table budget and in-job recovery (17).
+With a mesh (``parallel.mesh.make_mesh``), one process per device:
+
+* a ``data`` axis of more than one rank shards an in-memory fixed
+  coordinate's rows (each rank fits on its own block, every pass summed
+  over the axis); its scores are all-gathered into the full residual
+  vector that every rank keeps, and device AUC is the histogram AUC over
+  the axis;
+* an ``entity`` axis of more than one rank shards the random coordinates:
+  each rank solves one block of every bucket's entities and the model is
+  all-gathered (``train_random_effect(mesh=)``); each rank scores its own
+  entities' rows, and since each row's score comes from one entity, an
+  all-reduce SUM of the disjoint per-rank score vectors is exact;
+* whenever the world holds more than one process, a streamed fixed
+  coordinate streams this process's ``process_span`` of the rows (or its
+  ``AvroChunkSource(process_part=)`` share) and its partials sum across
+  processes, as in the reference.
+
+Not ported yet, each raising and naming its ROADMAP item: entity sharding
+by ``EntityShardSpec``, the entity table budget and in-job recovery (17).
 """
 
 from __future__ import annotations
@@ -37,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.evaluation.device import (
@@ -62,7 +81,14 @@ from photon_ml_tpu_torch.ops.regularization import (
 from photon_ml_tpu_torch.optimize import OptimizerConfig, get_optimizer
 from photon_ml_tpu_torch.io.stream_source import ScalarOverlaySource
 from photon_ml_tpu_torch.parallel.data_parallel import (
-    make_csc_path, resolve_sparse_grad,
+    distributed_coefficient_variances, distributed_hvp, distributed_value,
+    distributed_value_and_grad, make_csc_path, resolve_sparse_grad,
+)
+from photon_ml_tpu_torch.parallel.mesh import (
+    axis_size, mesh_device, pad_rows, shard_rows,
+)
+from photon_ml_tpu_torch.parallel.multihost import (
+    allgather_spans, allgather_varspans, process_count, process_span,
 )
 from photon_ml_tpu_torch.parallel.streaming import (
     PinnedRing, fit_streaming, iter_device_chunks, make_host_chunks,
@@ -281,15 +307,26 @@ def _drift_active_masks(buckets, frozen, offs_np: np.ndarray,
     return masks
 
 
+def _gather_rows(local: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """The full [n] vector from every data rank's equal padded block of
+    it, in rank order."""
+    parts = [torch.empty_like(local) for _ in range(axis_size(mesh, "data"))]
+    dist.all_gather(parts, local, group=mesh.get_group("data"))
+    return torch.cat(parts)[:n]
+
+
 class _FixedState:
     """Per-coordinate fixed-effect state: the device batch, the
-    column-sorted view (sparse features) and the fit closure."""
+    column-sorted view (sparse features) and the fit closure. ``mesh`` is
+    a mesh whose ``data`` axis (more than one rank) shards the in-memory
+    rows, else None."""
 
     def __init__(self, cfg: CoordinateConfig, data: GameDataset, dtype,
-                 task: str, device: torch.device):
+                 task: str, device: torch.device, mesh=None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = device
+        self.mesh = mesh
         self.n_all = data.num_samples
         self.w: Optional[torch.Tensor] = None  # optimizer (training) space
         self.variances = None
@@ -320,23 +357,33 @@ class _FixedState:
                                   cfg.down_sampling_rate, task=task, seed=0)
         else:
             rows, w = np.arange(data.num_samples), data.weights
-        self.train_rows = torch.as_tensor(rows, dtype=torch.long,
-                                          device=device)
         full = rows.shape[0] == data.num_samples
         if self.streaming:
             self._init_streaming(sp, data, rows, w, full)
             return
-        feats = SparseFeatures(
-            torch.as_tensor(sp.indices if full else sp.indices[rows],
-                            dtype=torch.int32, device=device),
-            # implicit-ones shards stay value-free
-            (None if sp.values is None else
-             torch.as_tensor(sp.values if full else sp.values[rows],
-                             device=device).to(dtype)),
-            dim=sp.dim)
-        self.labels = torch.as_tensor(data.labels[rows],
-                                      device=device).to(dtype)
-        self.weights = torch.as_tensor(w, device=device).to(dtype)
+        pad = 0
+        if mesh is not None:  # this rank's block of the training rows
+            start, per = shard_rows(rows.shape[0], mesh, "data")
+            rows, w = rows[start:start + per], w[start:start + per]
+            pad = per - rows.shape[0]
+            full = False
+        self.train_rows = torch.as_tensor(
+            np.concatenate([rows, np.zeros(pad, rows.dtype)]),
+            dtype=torch.long, device=device)
+        block = pad_rows(LabeledBatch(
+            SparseFeatures(
+                torch.as_tensor(sp.indices if full else sp.indices[rows],
+                                dtype=torch.int32, device=device),
+                # implicit-ones shards stay value-free
+                (None if sp.values is None else
+                 torch.as_tensor(sp.values if full else sp.values[rows],
+                                 device=device).to(dtype)),
+                dim=sp.dim),
+            torch.as_tensor(data.labels[rows], device=device).to(dtype),
+            torch.zeros(rows.shape[0], dtype=dtype, device=device),
+            torch.as_tensor(w, device=device).to(dtype)), rows.shape[0] + pad)
+        feats = block.features
+        self.labels, self.weights = block.labels, block.weights
         self.feats = feats
         self.l1_mask = None
         if cfg.intercept_index >= 0:
@@ -345,22 +392,48 @@ class _FixedState:
 
         self.sparse_grad = resolve_sparse_grad(cfg.sparse_grad, feats)
         self.csc = None
+        axis = dict(mesh=mesh, axis="data")
+        self._fg = distributed_value_and_grad(self.obj, **axis)
+        self._value = distributed_value(self.obj, **axis)
+        self._hvp = distributed_hvp(self.obj, **axis)
         if self.sparse_grad in _CSC_MODES:
             build, self._fg_csc, self._hvp_csc = make_csc_path(
                 self.obj, use_kernel=self.sparse_grad == "csc_kernel",
                 precise=self.sparse_grad == "csc_precise",
-                segment=self.sparse_grad == "csc_segment")
+                segment=self.sparse_grad == "csc_segment", **axis)
             # sorted once here: offsets change every step, the sparsity
             # pattern never does
             self.csc = build(self._batch(torch.zeros_like(self.labels)))
-        # the training copy is the scoring copy when every row trains
-        self.full_features = (feats if full
-                              else _device_features(sp, dtype, device))
+        # the training copy is the scoring copy when every row trains (a
+        # data rank's training block is then its scoring block)
+        if mesh is None:
+            self.full_features = (feats if full
+                                  else _device_features(sp, dtype, device))
+        elif cfg.down_sampling_rate >= 1.0:
+            self.full_features = feats
+        else:
+            start, per = shard_rows(self.n_all, mesh, "data")
+            stop = min(start + per, self.n_all)
+            scored = HostSparse(
+                sp.indices[start:stop],
+                None if sp.values is None else sp.values[start:stop], sp.dim)
+            zeros = torch.zeros(stop - start, dtype=dtype, device=device)
+            self.full_features = pad_rows(LabeledBatch(
+                _device_features(scored, dtype, device), zeros, zeros,
+                zeros), per).features
 
     def _init_streaming(self, sp: HostSparse, data: GameDataset, rows, w,
                         full: bool) -> None:
         """The shard stays on the host as fixed-shape chunks; no device
-        copy of its features exists."""
+        copy of its features exists. With more than one process, this
+        process keeps its ``process_span`` of the training rows and of the
+        scored rows."""
+        t0, t1 = process_span(rows.shape[0])
+        s0, s1 = process_span(self.n_all)
+        rows, w = rows[t0:t1], w[t0:t1]
+        self.train_rows = torch.as_tensor(rows, dtype=torch.long,
+                                          device=self.device)
+        self._score_span = (s0, s1)
         train_sp = HostSparse(
             np.asarray(sp.indices)[rows],
             None if sp.values is None else np.asarray(sp.values)[rows],
@@ -368,8 +441,15 @@ class _FixedState:
         cr = self.cfg.chunk_rows
         self._chunks, _ = make_host_chunks(train_sp, data.labels[rows], None,
                                            w, chunk_rows=cr)
-        self._score_chunks = (self._chunks if full else make_host_chunks(
-            sp, data.labels, chunk_rows=cr)[0])
+        if full:  # same rows in the same order
+            self._score_chunks = self._chunks
+        else:
+            scored = HostSparse(
+                np.asarray(sp.indices)[s0:s1],
+                None if sp.values is None else np.asarray(sp.values)[s0:s1],
+                sp.dim)
+            self._score_chunks = make_host_chunks(
+                scored, data.labels[s0:s1], chunk_rows=cr)[0]
         self._last_chunks = self._chunks
 
     def _init_out_of_core(self, data: GameDataset, source) -> None:
@@ -386,17 +466,38 @@ class _FixedState:
                 f"coordinate '{cfg.name}': down-sampling needs row "
                 "indexing; not supported out of core")
         total_rows = getattr(source, "total_rows", source.rows)
+        pc = process_count()
+        spans = getattr(source, "part_spans", None)
+        if pc > 1:
+            # every process streams its own block share of the same files
+            # (AvroChunkSource(process_part=(i, pc))); scores reassemble
+            # through the parts' recorded row spans
+            if not spans or len(spans) != pc:
+                raise ValueError(
+                    f"coordinate '{cfg.name}': multi-process out-of-core "
+                    "training needs a per-process "
+                    f"AvroChunkSource(process_part=(i, {pc})); this source "
+                    "has no matching part_spans")
+            if (spans[0][0] != 0 or spans[-1][1] != total_rows or any(
+                    spans[i][1] != spans[i + 1][0] for i in range(pc - 1))):
+                raise ValueError(
+                    f"coordinate '{cfg.name}': part spans {spans} do not "
+                    "tile the dataset")
         if total_rows != data.num_samples:
             raise ValueError(
                 f"coordinate '{cfg.name}': source has {total_rows} rows, "
                 f"dataset has {data.num_samples} — they must be the same "
                 "data in the same order")
+        lo, hi = getattr(source, "row_span", (0, source.rows))
         self.dim = source.dim
-        self.train_rows = torch.arange(data.num_samples, device=self.device)
-        self._ooc = (source, data.labels, data.weights)
+        self.train_rows = torch.arange(lo, hi, device=self.device)
+        labels, weights = data.labels[lo:hi], data.weights[lo:hi]
+        self._ooc = (source, labels, weights)
+        self._ooc_spans = spans if pc > 1 else None
+        self._score_span = (lo, hi)
         self._score_chunks = source
-        self._last_chunks = ScalarOverlaySource(source, labels=data.labels,
-                                                weights=data.weights)
+        self._last_chunks = ScalarOverlaySource(source, labels=labels,
+                                                weights=weights)
 
     def _streamed_chunks(self, offs: torch.Tensor):
         """This step's chunks: the residual offsets over the host chunks
@@ -420,15 +521,14 @@ class _FixedState:
 
     def _closures(self, batch: LabeledBatch):
         """(fun_and_grad, value, hvp) of this step's objective."""
-        l2, obj = self.l2, self.obj
+        l2 = self.l2
+        value = (lambda w: self._value(w, batch, l2))
         if self.csc is not None:
             csc = self.csc
-            return (lambda w: self._fg_csc(w, batch, csc, l2),
-                    lambda w: obj.value(w, batch, l2),
+            return (lambda w: self._fg_csc(w, batch, csc, l2), value,
                     lambda w, v: self._hvp_csc(w, v, batch, csc, l2))
-        return (lambda w: obj.value_and_grad(w, batch, l2),
-                lambda w: obj.value(w, batch, l2),
-                lambda w, v: obj.hvp(w, v, batch, l2))
+        return (lambda w: self._fg(w, batch, l2), value,
+                lambda w, v: self._hvp(w, v, batch, l2))
 
     def fit(self, offsets_full: torch.Tensor, opt_config=None):
         run_cfg = self.cfg.opt_config() if opt_config is None else opt_config
@@ -450,8 +550,9 @@ class _FixedState:
         if self.cfg.compute_variance:
             mode = ("full" if self.cfg.compute_variance == "full"
                     else "diagonal")
-            self.variances = self.obj.coefficient_variances(
-                res.w, batch, self.l2, mode=mode)
+            self.variances = distributed_coefficient_variances(
+                self.obj, mesh=self.mesh, axis="data")(
+                    res.w, batch, self.l2, mode=mode)
         return res
 
     def _fit_streaming(self, offs: torch.Tensor, run_cfg):
@@ -475,10 +576,14 @@ class _FixedState:
 
     def train_scores(self, w_model: torch.Tensor) -> torch.Tensor:
         """This coordinate's margins over every training row; streamed, in
-        one pass over the chunks' features (no device copy of the
-        shard)."""
+        one pass over the chunks' features (no device copy of the shard).
+        Each data rank (each process, streamed) scores its own rows, and
+        the blocks are gathered in rank order."""
         if not self.streaming:
-            return _margins(self.full_features, w_model)
+            local = _margins(self.full_features, w_model)
+            if self.mesh is None:
+                return local
+            return _gather_rows(local, self.n_all, self.mesh)
         w_model = w_model.to(self.dtype)
 
         def features(c):
@@ -491,7 +596,15 @@ class _FixedState:
                                         self.dim), w_model)
                 for _c, t in iter_device_chunks(
                     self._score_chunks, features, self.cfg.prefetch_depth)]
-        return torch.cat(outs)[: self.n_all]
+        s0, s1 = self._score_span
+        local = torch.cat(outs)[: s1 - s0]
+        if process_count() == 1:
+            return local
+        # host gathers of the span margins, in global row order
+        local = local.cpu().numpy()
+        whole = (allgather_spans(local, self.n_all) if self._ooc is None
+                 else allgather_varspans(local, self._ooc_spans))
+        return torch.as_tensor(whole, device=self.device)
 
     def model_space_w(self) -> torch.Tensor:
         """Raw-feature-space coefficients for scoring/saving."""
@@ -536,7 +649,11 @@ class _RandomState:
 
 class CoordinateDescent:
     """Run the GAME block-coordinate loop over a list of coordinates on one
-    device (``device``, default ``cuda``)."""
+    device per process (``device``, default ``cuda``, or the mesh's
+    device). ``mesh``: a ``parallel.mesh.make_mesh`` mesh whose ``data``
+    and ``entity`` axes shard the fixed and random coordinates (module
+    docstring); every rank passes the same datasets and ends with the same
+    model."""
 
     def __init__(
         self,
@@ -555,9 +672,6 @@ class CoordinateDescent:
         recovery=None,
         device=None,
     ):
-        if mesh is not None:
-            raise _not_ported("CoordinateDescent(mesh=...)",
-                              "15 (multi-device)")
         if entity_shard is not None:
             raise _not_ported("CoordinateDescent(entity_shard=...)",
                               "17 (multi-host and recovery)")
@@ -589,7 +703,14 @@ class CoordinateDescent:
         # shared across runs by GameEstimator so the per-entity bucketing
         # is built once per dataset, not once per grid point
         self.dataset_cache = dataset_cache
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # the axes that actually shard: more than one rank along them
+        self._data_mesh = (mesh if mesh is not None
+                           and axis_size(mesh, "data") > 1 else None)
+        self._entity_mesh = (mesh if mesh is not None
+                             and axis_size(mesh, "entity") > 1 else None)
+        self.device = (mesh_device(mesh) if mesh is not None
+                       and device is None else resolve_device(device))
 
     # -- main loop -------------------------------------------------------
     def run(
@@ -622,7 +743,7 @@ class CoordinateDescent:
         for cfg in self.configs:
             if cfg.coordinate_type == "fixed":
                 states[cfg.name] = _FixedState(cfg, train, dtype, self.task,
-                                               dev)
+                                               dev, self._data_mesh)
                 if validation is not None:
                     val_feats[cfg.name] = _device_features(
                         validation.features[cfg.feature_shard], dtype, dev)
@@ -651,10 +772,11 @@ class CoordinateDescent:
                     device_evals[ev.name] = (
                         None if validation.group_ids is None
                         else make_grouped_device_evaluator(
-                            ev.name, validation.group_ids, device=dev))
+                            ev.name, validation.group_ids, mesh=self.mesh,
+                            device=dev))
                 else:
                     device_evals[ev.name] = make_device_evaluator(
-                        ev.name, device=dev)
+                        ev.name, mesh=self._data_mesh, device=dev)
             val_labels_dev = torch.as_tensor(validation.labels,
                                              device=dev).to(dtype)
             val_weights_dev = torch.as_tensor(validation.weights,
@@ -823,7 +945,8 @@ class CoordinateDescent:
             config=run_cfg if run_cfg is not None else cfg.opt_config(),
             w0=st.coeffs, compute_variance=cfg.compute_variance,
             dtype=self.dtype, normalization=cfg.normalization,
-            active=active, prev_variances=st.variances, device=dev)
+            active=active, prev_variances=st.variances, device=dev,
+            mesh=self._entity_mesh)
         if cfg.active_set:
             st.frozen = [np.asarray(c) for c in fit.converged]
             if offs_np is None:
@@ -852,7 +975,7 @@ class CoordinateDescent:
         new = score_random_effect(
             st.train_view, st.coeffs, n, self.dtype,
             prev=None if active is None else prev, changed=active,
-            device=dev)
+            device=dev, mesh=self._entity_mesh)
         delta = float(torch.max(torch.abs(new - prev))) if n else 0.0
         rt.replace(prev, new)
         scores[cfg.name] = new
@@ -860,7 +983,7 @@ class CoordinateDescent:
             new_v = score_random_effect(
                 val_states[cfg.name], st.coeffs, val_n, self.dtype,
                 prev=None if active is None else val_scores[cfg.name],
-                changed=active, device=dev)
+                changed=active, device=dev, mesh=self._entity_mesh)
             if vt is not None:
                 vt.replace(val_scores[cfg.name], new_v)
             val_scores[cfg.name] = new_v

@@ -24,6 +24,14 @@ active-set coordinate descent relies on.
 Entity blocks are sized from the bucket's bytes per entity against a stated
 share of the device's memory (:func:`_block_entities`), not from the TPU's
 constants.
+
+With a mesh (``parallel.mesh.make_mesh``) whose ``entity`` axis has S
+ranks, each rank solves one contiguous block of every bucket's entities
+(the bucket padded to a multiple of S with inert zero-weight entities),
+and the coefficients, variances and convergence flags are all-gathered in
+rank order, so every rank holds the whole model. Entities are
+independent, so the sharded solve equals the unsharded one entity by
+entity.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from photon_ml_tpu_torch.ops.losses import (
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.optimize import batched
 from photon_ml_tpu_torch.optimize.common import OptimizerConfig
+from photon_ml_tpu_torch.parallel.mesh import all_reduce_sum
 from photon_ml_tpu_torch.types import resolve_device
 
 RE_OPTIMIZERS = ("lbfgs", "owlqn", "tron", "newton")
@@ -455,6 +464,44 @@ def _run_entity_blocks(run, args, n_entities: int, bs: int,
     return W, V, cat(conv_parts).astype(bool), cat(iter_parts)
 
 
+def _entity_part(n_solve: int, sel, mesh, axis: str):
+    """None without a mesh; else ``(rows, per_rank)``: this rank's entity
+    rows of the bucket (indices into it, taken from ``sel`` when only the
+    active entities solve) when the ``n_solve`` entities are padded to a
+    multiple of the axis size and cut into equal contiguous blocks."""
+    if mesh is None:
+        return None
+    from photon_ml_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    per = -(-n_solve // axis_size(mesh, axis))
+    lo = min(axis_index(mesh, axis) * per, n_solve)
+    hi = min(lo + per, n_solve)
+    rows = np.arange(lo, hi) if sel is None else sel[lo:hi]
+    return rows, per
+
+
+def _run_sharded_blocks(run, args, n_solve: int, per: int, width: int,
+                        compute_variance, mesh, axis: str):
+    """Solve this rank's entity block (padded to ``per`` entities with
+    zero-weight entities) and all-gather every rank's results over the
+    entity axis, in rank order, trimmed to the bucket's ``n_solve``."""
+    from photon_ml_tpu_torch.parallel.multihost import allgather_host
+
+    local = tuple(_pad_entities(a, per) if i < 8 else a
+                  for i, a in enumerate(args))
+    outs = _run_entity_blocks(run, local, per, min(width, per),
+                              compute_variance)
+    group = mesh.get_group(axis)
+    gathered = []
+    for o in outs:
+        if o is None:
+            gathered.append(None)
+            continue
+        parts = allgather_host(np.ascontiguousarray(o), group)
+        gathered.append(np.concatenate(parts)[:n_solve])
+    return tuple(gathered)
+
+
 def _np_dtype(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
@@ -489,17 +536,20 @@ def train_random_effect(
     bucket). Only masked entities are re-solved, in a power-of-two padded
     sub-bucket (``_active_width``); frozen entities carry their ``w0``
     coefficients (and ``prev_variances``) and report converged=True /
-    iterations=0. Requires ``w0``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_random_effect(mesh=...) shards entities over devices: not "
-            "ported yet, ROADMAP Queue 1 item 15 (multi-device)")
+    iterations=0. Requires ``w0``.
+
+    ``mesh``: shard every bucket's entities over the mesh's ``axis``
+    (module docstring); ``device`` then defaults to the mesh's device."""
     if float(l1) > 0 and optimizer != "owlqn":
         optimizer = "owlqn"
     _check_re_optimizer(optimizer)
     if active is not None and w0 is None:
         raise ValueError("active-set training needs w0 (frozen entities "
                          "carry their previous coefficients)")
+    if mesh is not None and device is None:
+        from photon_ml_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     dev = resolve_device(device)
     np_dt = _np_dtype(dtype)
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -549,18 +599,29 @@ def train_random_effect(
         run = _solver_for_bucket(D, task, opt_b, config, compute_variance,
                                  norm_mode)
         N, k = bucket.indices.shape[1], bucket.indices.shape[2]
+        # this rank's entities: all of them, or one contiguous block
+        part = _entity_part(n_solve, sel, mesh, axis)
+        take = sel if part is None else part[0]
+        n_here = n_solve if part is None else len(take)
+        per = n_solve if part is None else part[1]
         bs = min(_block_entities(N, D, k, opt_b, config, itemsize,
-                                 compute_variance, dev), E)
-        width = bs if sel is None else _active_width(n_solve, bs)
+                                 compute_variance, dev),
+                 E if part is None else per)
+        width = (bs if sel is None and part is None
+                 else _active_width(per, bs))
 
         def pick(a):
-            return a if sel is None else a[sel]
+            return a if take is None else a[take]
 
-        ln_b = None
+        ln_b = ln_all = None
         if local_norm is not None:
             f_np, s_np, pos_np = local_norm[b]
             ln_b = (pick(f_np), None if s_np is None else pick(s_np),
                     None if pos_np is None else pick(pos_np))
+            # every solved entity's (gathered) coefficients map back
+            ln_all = ln_b if part is None else tuple(
+                None if a is None else (a if sel is None else a[sel])
+                for a in (f_np, s_np, pos_np))
         sidx = torch.as_tensor(pick(bucket.sample_idx), device=dev)
         # padding rows (sidx == -1) carry weight 0; their offset is 0
         off = offsets[torch.clamp(sidx, min=0).long()] * (sidx >= 0)
@@ -570,15 +631,15 @@ def train_random_effect(
                 w_init = _re_to_training_space(w_init, *ln_b)
             w_init = torch.as_tensor(np.asarray(w_init), device=dev).to(dtype)
         else:
-            w_init = torch.zeros((n_solve, D), dtype=dtype, device=dev)
+            w_init = torch.zeros((n_here, D), dtype=dtype, device=dev)
         if ln_b is not None:
             f_loc = torch.as_tensor(ln_b[0], device=dev).to(dtype)
-            s_loc = (torch.zeros((n_solve, 1), dtype=dtype, device=dev)
+            s_loc = (torch.zeros((n_here, 1), dtype=dtype, device=dev)
                      if ln_b[1] is None
                      else torch.as_tensor(ln_b[1], device=dev).to(dtype))
         else:  # unused
-            f_loc = torch.zeros((n_solve, 1), dtype=dtype, device=dev)
-            s_loc = torch.zeros((n_solve, 1), dtype=dtype, device=dev)
+            f_loc = torch.zeros((n_here, 1), dtype=dtype, device=dev)
+            s_loc = torch.zeros((n_here, 1), dtype=dtype, device=dev)
         args = (
             torch.as_tensor(pick(bucket.indices), device=dev),
             torch.as_tensor(pick(bucket.values), device=dev).to(dtype),
@@ -591,10 +652,14 @@ def train_random_effect(
             float(l2),
             float(l1),
         )
-        W, V, conv, iters = _run_entity_blocks(run, args, n_solve, width,
-                                               compute_variance)
-        if ln_b is not None:
-            W = _re_to_model_space(W, *ln_b)
+        if part is None:
+            W, V, conv, iters = _run_entity_blocks(run, args, n_solve, width,
+                                                   compute_variance)
+        else:
+            W, V, conv, iters = _run_sharded_blocks(
+                run, args, n_solve, per, width, compute_variance, mesh, axis)
+        if ln_all is not None:
+            W = _re_to_model_space(W, *ln_all)
         if sel is None:
             conv_arr, iter_arr = conv, iters.astype(np.int32)
         else:
@@ -658,6 +723,8 @@ def score_random_effect(
     prev: Optional[torch.Tensor] = None,
     changed: Optional[Sequence[Optional[np.ndarray]]] = None,
     device=None,
+    mesh=None,
+    axis: str = "entity",
 ) -> torch.Tensor:
     """Margins of every sample under its entity's model, in a
     full-dataset score vector on ``device`` (default ``cuda``). Samples
@@ -667,33 +734,52 @@ def score_random_effect(
     the rows owned by re-solved entities and overwrite them in the previous
     score vector. ``changed`` holds one boolean mask [E] per bucket (None:
     the whole bucket); the changed entities are padded to a power-of-two
-    width."""
+    width.
+
+    ``mesh``: each rank scores only its own ``span_of`` block of every
+    bucket's entities over ``axis`` into a zero vector (with, in
+    incremental mode, a 0/1 vector marking the rows it wrote), and one
+    all-reduce SUM joins them. Each row belongs to at most one entity, so
+    the sum adds only zeros to each score: exact, and the same on every
+    rank."""
     dev = resolve_device(device)
+    own = _own_entities(mesh, axis)
     if prev is None or changed is None:
         scores = torch.zeros(num_samples + 1, dtype=dtype, device=dev)
         for view, W in zip(score_view, coefficients):
-            if view.sample_idx.shape[0] == 0:
+            E = view.sample_idx.shape[0]
+            if E == 0:
+                continue
+            e0, e1 = own(E)
+            if e0 == e1:
                 continue
             m = _bucket_margins(
-                torch.as_tensor(np.asarray(W), device=dev).to(dtype),
-                torch.as_tensor(view.indices, device=dev),
-                torch.as_tensor(view.values, device=dev).to(dtype))
+                torch.as_tensor(np.asarray(W)[e0:e1], device=dev).to(dtype),
+                torch.as_tensor(view.indices[e0:e1], device=dev),
+                torch.as_tensor(view.values[e0:e1], device=dev).to(dtype))
             _write_rows(scores, num_samples,
-                        torch.as_tensor(view.sample_idx, device=dev), m)
+                        torch.as_tensor(view.sample_idx[e0:e1], device=dev),
+                        m)
+        if mesh is not None:
+            all_reduce_sum(scores, mesh, axis)
         return scores[:num_samples]
 
-    scores = torch.cat([torch.as_tensor(prev, device=dev).to(dtype),
-                        torch.zeros(1, dtype=dtype, device=dev)])
+    prev = torch.as_tensor(prev, device=dev).to(dtype)
+    if mesh is None:
+        scores = torch.cat([prev, torch.zeros(1, dtype=dtype, device=dev)])
+    else:  # this rank's rewritten rows and their marks
+        scores = torch.zeros(num_samples + 1, dtype=dtype, device=dev)
+        hit = torch.zeros(num_samples + 1, dtype=dtype, device=dev)
     for view, W, mask in zip(score_view, coefficients, changed):
         E = view.sample_idx.shape[0]
         if E == 0:
             continue
-        if mask is None:
-            sel = np.arange(E)
-        else:
-            sel = np.flatnonzero(np.asarray(mask, bool))
-            if len(sel) == 0:
-                continue
+        e0, e1 = own(E)
+        sel = np.arange(e0, e1)
+        if mask is not None:
+            sel = sel[np.asarray(mask, bool)[e0:e1]]
+        if len(sel) == 0:
+            continue
         width = _active_width(len(sel), E, 1)
         W_t = _pad_entities(torch.as_tensor(np.asarray(W)[sel],
                                             device=dev).to(dtype), width)
@@ -708,7 +794,26 @@ def score_random_effect(
                 [sidx_np, np.full((pad,) + sidx_np.shape[1:], -1,
                                   sidx_np.dtype)])
         m = _bucket_margins(W_t, idx, val)
+        sidx = torch.as_tensor(sidx_np, device=dev)
         # overwrite, do not add: these rows' previous margins are stale
-        _write_rows(scores, num_samples, torch.as_tensor(sidx_np, device=dev),
-                    m)
-    return scores[:num_samples]
+        _write_rows(scores, num_samples, sidx, m)
+        if mesh is not None:
+            _write_rows(hit, num_samples, sidx, torch.ones_like(m))
+    if mesh is None:
+        return scores[:num_samples]
+    both = torch.stack([scores, hit])
+    all_reduce_sum(both, mesh, axis)
+    return torch.where(both[1, :num_samples] > 0, both[0, :num_samples],
+                       prev)
+
+
+def _own_entities(mesh, axis: str):
+    """``own(E) -> (e0, e1)``: the whole bucket without a mesh, else this
+    rank's ``span_of`` block of its ``E`` entities along ``axis``."""
+    if mesh is None:
+        return lambda E: (0, E)
+    from photon_ml_tpu_torch.parallel.mesh import axis_index, axis_size
+    from photon_ml_tpu_torch.parallel.multihost import span_of
+
+    r, size = axis_index(mesh, axis), axis_size(mesh, axis)
+    return lambda E: span_of(E, r, size)

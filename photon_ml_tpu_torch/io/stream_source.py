@@ -1,5 +1,5 @@
 """Out-of-core chunk source: stream on-disk Avro through ``fit_streaming``
-(counterpart of ``photon_ml_tpu/io/stream_source.py``, one process).
+(counterpart of ``photon_ml_tpu/io/stream_source.py``).
 
 :class:`AvroChunkSource` is a drop-in replacement for the chunk LIST that
 ``parallel.streaming.fit_streaming`` consumes (it needs only ``len()`` and
@@ -22,9 +22,11 @@ Without the native library the producer falls back to the pure-Python
 codec's block-at-a-time record stream: same bounded-memory contract,
 slower decode.
 
-Not here: ``process_part`` (one block share per process) is ROADMAP item
-15; the fault-injection sites (``stream.block_payload``,
-``stream.chunk``) are item 17.
+``process_part=(i, n)`` keeps one contiguous share of the container blocks
+per process, so a multi-process streamed fit reads each row once.
+
+Not here: the fault-injection sites (``stream.block_payload``,
+``stream.chunk``) are ROADMAP item 17.
 """
 
 from __future__ import annotations
@@ -247,12 +249,21 @@ class AvroChunkSource:
     prefetch: producer queue depth; host RAM holds at most ``prefetch + 2``
         chunks at any moment.
     require_response: unlabeled records raise (training contract).
+    process_part: ``(part, n_parts)``: keep only this process's contiguous
+        share of the container blocks, split by block start row (balanced
+        by rows). Each process's streamed partials are then summed across
+        processes (``parallel.streaming._cross_process_sum``), which does
+        not care where the split falls, so block-granular parts need no
+        padding. Every part's row span is recorded in ``part_spans`` (and
+        this part's in ``row_span``) for reassembling global vectors
+        (``parallel.multihost.allgather_varspans``).
     """
 
     def __init__(self, paths, index_map, *, chunk_rows: int,
                  pad_nnz: Optional[int] = None, columns=None,
                  implicit_ones: bool = False, dtype=np.float32,
-                 prefetch: int = 2, require_response: bool = True):
+                 prefetch: int = 2, require_response: bool = True,
+                 process_part: Optional[Tuple[int, int]] = None):
         from photon_ml_tpu_torch.io.data_reader import InputColumnsNames
 
         # first, so close()/__del__ stay safe on a half-built instance
@@ -270,7 +281,9 @@ class AvroChunkSource:
         self.total_rows = sum(b.count for b in self._blocks)
         self.row_span = (0, self.total_rows)
         self.part_spans = None
-        self.rows = self.total_rows
+        if process_part is not None:
+            self._keep_part(*process_part)
+        self.rows = sum(b.count for b in self._blocks)
         if self.rows == 0:
             raise ValueError(f"no records under {paths!r}")
         self.dim = index_map.size
@@ -285,6 +298,41 @@ class AvroChunkSource:
         if pad_nnz is None:
             pad_nnz = self._measure_pad_nnz()
         self.pad_nnz = int(pad_nnz)
+
+    def _keep_part(self, part: int, n_parts: int) -> None:
+        """Keep the blocks whose start row falls in ``[part * total //
+        n_parts, (part + 1) * total // n_parts)`` and record every part's
+        row span. The spans come from the global block layout, the same on
+        every process, so a part with no block raises on every process
+        alike (none is left waiting in a collective)."""
+        if not 0 <= part < n_parts:
+            raise ValueError(f"process_part {(part, n_parts)} out of range")
+        counts = np.asarray([b.count for b in self._blocks])
+        starts = np.cumsum(counts) - counts
+        total = int(counts.sum())
+        lows = np.asarray([i * total // n_parts for i in range(n_parts + 1)])
+        edges = np.searchsorted(starts, lows, side="left")
+        self.part_spans = []
+        for i in range(n_parts):
+            e0, e1 = int(edges[i]), int(edges[i + 1])
+            if e0 < e1:
+                s0 = int(starts[e0])
+                s1 = int(starts[e1 - 1]) + self._blocks[e1 - 1].count
+            else:
+                s0 = s1 = 0
+            self.part_spans.append((s0, s1))
+        starved = [i for i, (s0, s1) in enumerate(self.part_spans)
+                   if s0 == s1]
+        if starved:
+            raise ValueError(
+                f"process_part {starved[0]}/{n_parts} owns no container "
+                f"blocks ({len(counts)} blocks for {n_parts} parts; starved "
+                f"parts {starved}, detected on every process): rewrite the "
+                "dataset with a smaller block_size so that every process "
+                "gets at least one block")
+        e0, e1 = int(edges[part]), int(edges[part + 1])
+        self._blocks = self._blocks[e0:e1]
+        self.row_span = self.part_spans[part]
 
     @property
     def decoder(self) -> str:

@@ -12,7 +12,7 @@ autograd is involved (the JAX package differentiates instead).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -139,17 +139,27 @@ class GLMObjective:
         return H + torch.diag(self.reg_diagonal(H[0], l2))
 
     def coefficient_variances(self, w, batch: LabeledBatch, l2=0.0,
-                              mode: str = "diagonal") -> torch.Tensor:
+                              mode: str = "diagonal",
+                              reduce: Optional[Callable] = None
+                              ) -> torch.Tensor:
         """Coefficient variances: ``"diagonal"`` is ``1 / diag(H)`` (cheap
         at any dim); ``"full"`` is ``diag(H^-1)``, which accounts for
-        feature correlations (an O(d^3) solve, small dims only)."""
+        feature correlations (an O(d^3) solve, small dims only).
+        ``reduce`` sums the data term's Hessian over row blocks (``batch``
+        is then one block); the L2 term is added once, after it."""
         if mode == "full":
-            H = self.full_hessian(w, batch, l2)
+            H = self.full_hessian(w, batch, 0.0)
+        elif mode == "diagonal":
+            H = self.diagonal_hessian(w, batch, 0.0)
+        else:
+            raise ValueError(f"unknown variance mode {mode!r}")
+        if reduce is not None:
+            H = reduce(H)
+        if mode == "full":
+            H = H + torch.diag(self.reg_diagonal(H[0], l2))
             eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
             return torch.diagonal(torch.linalg.solve(H, eye))
-        if mode != "diagonal":
-            raise ValueError(f"unknown variance mode {mode!r}")
-        diag = self.diagonal_hessian(w, batch, l2)
+        diag = H + self.reg_diagonal(H, l2)
         return 1.0 / torch.clamp(diag, min=torch.finfo(diag.dtype).tiny)
 
 

@@ -1,5 +1,5 @@
 """Per-feature summary statistics (counterpart of
-``photon_ml_tpu/ops/statistics.py``, with the one-process streamed form).
+``photon_ml_tpu/ops/statistics.py``, with the streamed form).
 
 Equivalent of the reference's ``stat.BasicStatisticalSummary`` (SURVEY.md
 §3.1; reference mount empty): per-feature mean, variance, min/max, nonzero
@@ -11,6 +11,7 @@ sparse features are handled without densifying (zeros counted analytically).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -105,8 +106,9 @@ def summarize_features(batch: LabeledBatch) -> FeatureSummary:
     )
 
 
-def summarize_features_streamed(chunks, dim: int,
-                                num_rows: int) -> FeatureSummary:
+def summarize_features_streamed(chunks, dim: int, num_rows: int,
+                                total_rows: Optional[int] = None,
+                                part_reduce=None) -> FeatureSummary:
     """:func:`summarize_features` over ONE streamed pass of a chunk source
     (``parallel.streaming.HostChunk`` iterable: in-RAM lists or the
     disk-backed ``io.stream_source.AvroChunkSource``): per-feature float64
@@ -116,9 +118,14 @@ def summarize_features_streamed(chunks, dim: int,
     ``num_rows`` is the REAL row count: chunks are fixed-shape with
     trailing padding rows in the final chunk, and padding must not count as
     rows of implicit zeros. A genuine weight-0 row still counts
-    (summarization is unweighted, as in the in-RAM function). The
-    multi-process form (``total_rows``/``part_reduce``) is ROADMAP item
-    15."""
+    (summarization is unweighted, as in the in-RAM function).
+
+    Multi-process runs stream only this process's part: pass the GLOBAL
+    row count as ``total_rows`` (``num_rows`` stays the LOCAL count that
+    caps the final chunk's padding) and a ``part_reduce(s1, s2, nnz, mx,
+    mn)`` that reduces the raw moments across processes
+    (``parallel.multihost.allreduce_summary_moments``), so that every
+    process finalizes the same global summary."""
     s1 = np.zeros(dim)
     s2 = np.zeros(dim)
     nnz = np.zeros(dim)
@@ -149,7 +156,9 @@ def summarize_features_streamed(chunks, dim: int,
             np.add.at(nnz, idx, 1.0)
             np.maximum.at(mx, idx, val)
             np.minimum.at(mn, idx, val)
-    n = num_rows
+    if part_reduce is not None:
+        s1, s2, nnz, mx, mn = part_reduce(s1, s2, nnz, mx, mn)
+    n = num_rows if total_rows is None else total_rows
     has_zero = nnz < n
     mx = np.where(has_zero, np.maximum(mx, 0.0), mx)
     mn = np.where(has_zero, np.minimum(mn, 0.0), mn)

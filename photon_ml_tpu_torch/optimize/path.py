@@ -1,5 +1,5 @@
 """Pathwise fixed-effect GLM training with KKT-certified screening
-(counterpart of ``photon_ml_tpu/optimize/path.py``, its in-memory mode).
+(counterpart of ``photon_ml_tpu/optimize/path.py``).
 
 Walking the lambda grid in decreasing order, a feature whose data-gradient
 magnitude at the previous lambda's solution falls below the sequential
@@ -27,6 +27,13 @@ through the column-sorted ``X^T d`` of the resolved ``sparse_grad`` mode:
 launches ``ops.kernels.multiply_prefix_sum``. The full problem's
 column-sorted view is built once (or taken from ``precomputed_csc``); each
 restricted solve builds its own inside ``fit_distributed``.
+
+With a mesh (``parallel.mesh.make_mesh``), the in-memory batch is cut
+into row blocks once (``parallel.mesh.shard_batch``): every certification
+pass and every restricted solve runs on this rank's block, summed over the
+mesh's ``axis``, so every rank screens, solves and certifies alike. In
+the out-of-core mode each process streams its own rows and the streamed
+passes sum across processes (``parallel.streaming``).
 
 Normalization does not compose with screening (the virtual shift couples
 every column through the margin adjustment), so :class:`PathSolver`
@@ -59,8 +66,10 @@ from photon_ml_tpu_torch.optimize.common import (
     OptimizationResult, OptimizerConfig, PathConfig,
 )
 from photon_ml_tpu_torch.parallel.data_parallel import (
-    build_csc, fit_distributed, make_csc_path, resolve_sparse_grad,
+    build_csc, distributed_value_and_grad, fit_shard, make_csc_path,
+    resolve_sparse_grad,
 )
+from photon_ml_tpu_torch.parallel.mesh import mesh_device, shard_batch
 from photon_ml_tpu_torch.parallel.streaming import (
     HostChunk, fit_streaming, streaming_value_and_grad,
 )
@@ -166,7 +175,11 @@ class PathSolver:
 
     Exactly one of ``batch`` (a LabeledBatch on its device; every tensor
     the solver makes lies there) and ``chunks`` (host chunks, with ``dim``,
-    ``dtype`` and ``device``, default ``cuda``) is given.
+    ``dtype`` and ``device``, default ``cuda``) is given. With ``mesh``,
+    every rank passes the same whole ``batch`` (each keeps its row block
+    on its own device, and ``precomputed_csc`` is ``build_csc(batch,
+    mesh=mesh)``), or its own rows as ``chunks`` (streamed on the mesh's
+    device).
     ``solve(reg_weight)`` returns ``(OptimizationResult, PathLambdaStats)``
     with the result's ``w`` scattered back to full width and
     ``solver_tolerance``/``screened_dim`` set."""
@@ -188,6 +201,8 @@ class PathSolver:
         dtype=torch.float32,
         prefetch_depth: Optional[int] = None,
         device=None,
+        mesh=None,
+        axis: str = "data",
     ):
         if (batch is None) == (chunks is None):
             raise ValueError("pass exactly one of batch= or chunks=")
@@ -213,11 +228,13 @@ class PathSolver:
             0 if objective.intercept_index >= 0 else -1)
         self._chunks = chunks
         self._prefetch_depth = prefetch_depth
+        self._mesh, self._axis = mesh, axis
         if chunks is not None:
             if dim is None:
                 raise ValueError("chunks= mode needs dim=")
             self._batch = None
-            self._dev = resolve_device(device)
+            self._dev = (mesh_device(mesh) if mesh is not None
+                         and device is None else resolve_device(device))
             self._dtype = dtype
             self._dim = int(dim)
             self._csc = None
@@ -238,6 +255,9 @@ class PathSolver:
             self._penalized[objective.intercept_index] = False
 
     def _init_batch(self, batch, objective, sparse_grad, precomputed_csc):
+        mesh, axis = self._mesh, self._axis
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, axis)
         self._batch = batch
         self._dev = batch.device
         self._dtype = batch.labels.dtype
@@ -264,7 +284,7 @@ class PathSolver:
             _, fg, _ = make_csc_path(
                 objective, use_kernel=resolved == "csc_kernel",
                 precise=resolved == "csc_precise",
-                segment=resolved == "csc_segment")
+                segment=resolved == "csc_segment", mesh=mesh, axis=axis)
             csc = self._csc
             self._full_fg = lambda w: fg(w, batch, csc, 0.0)
         else:
@@ -272,7 +292,8 @@ class PathSolver:
                 raise ValueError(
                     f"precomputed_csc given but sparse_grad={resolved!r} "
                     "does not use it")
-            self._full_fg = lambda w: objective.value_and_grad(w, batch, 0.0)
+            fg = distributed_value_and_grad(objective, mesh=mesh, axis=axis)
+            self._full_fg = lambda w: fg(w, batch, 0.0)
 
     # -- full data-gradient pass (screen init + certification) -------------
     def _full_grad(self, w: torch.Tensor) -> torch.Tensor:
@@ -385,10 +406,10 @@ class PathSolver:
                 l1=lam_l1, prefetch_depth=self._prefetch_depth,
                 sparse_grad=self._sparse_grad, device=self._dev)
         rbatch = self._restrict_batch(member, cols, lut, bucket)
-        return fit_distributed(
+        return fit_shard(
             self._robj, rbatch, w0, l2=lam_l2, l1=lam_l1,
             optimizer=self._resolve_opt(lam_l1), config=run_cfg,
-            sparse_grad=self._sparse_grad)
+            sparse_grad=self._sparse_grad, mesh=self._mesh, axis=self._axis)
 
     def _solve_full(self, w_warm, lam_l1, lam_l2,
                     run_cfg) -> OptimizationResult:
@@ -399,10 +420,11 @@ class PathSolver:
                 optimizer=self._resolve_opt(lam_l1), l1=lam_l1,
                 prefetch_depth=self._prefetch_depth,
                 sparse_grad=self._sparse_grad, device=self._dev)
-        return fit_distributed(
+        return fit_shard(
             self._objective, self._batch, w_warm, l2=lam_l2, l1=lam_l1,
             optimizer=self._resolve_opt(lam_l1), config=run_cfg,
-            sparse_grad=self._sparse_grad, precomputed_csc=self._csc)
+            sparse_grad=self._sparse_grad, precomputed_csc=self._csc,
+            mesh=self._mesh, axis=self._axis)
 
     # -- the per-lambda walk --------------------------------------------------
     def solve(self, reg_weight: float, tolerance: Optional[float] = None

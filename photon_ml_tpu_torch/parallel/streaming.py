@@ -1,6 +1,5 @@
-"""Streamed (larger-than-device-memory) fixed-effect training on one device
-(counterpart of ``photon_ml_tpu/parallel/streaming.py``: its ``mesh=None``
-arms).
+"""Streamed (larger-than-device-memory) fixed-effect training (counterpart
+of ``photon_ml_tpu/parallel/streaming.py``), one device per process.
 
 The dataset lives in host RAM (or on disk, ``io/stream_source.py``) as
 fixed-shape :class:`HostChunk` s. Each optimizer pass streams the chunks
@@ -37,10 +36,20 @@ trials stream only cached per-row margins (16 B per row for a ladder of 8
 step sizes). ``lbfgs_blackbox``, TRON and OWL-QN pay one full pass per
 evaluation, as the reference's model does.
 
-Not here: the mesh arms and the cross-process reduction
-(``_cross_process_sum``, ``_shard_map_chunk``) are ROADMAP item 15; the
-``CollectiveGuard`` around each pass is item 17; the trace spans and the
-training metrics are item 20.
+Multi-process: when the default process group holds more than one
+process, each process streams only its own rows (its ``process_span`` of
+an in-RAM dataset, or its ``AvroChunkSource(process_part=)`` share of a
+disk-backed one), and each pass's partials, the Kahan pairs included, are
+all-gathered over the world and summed in rank order
+(:func:`_cross_process_sum`), so that a fit does not depend on the
+backend's reduction algorithm and every process ends with the same ``w``.
+The JAX package's ``_shard_map_chunk`` has no counterpart: it wrapped the
+per-chunk program so that a mesh of several local devices put no
+collective into it, and with one process per device each process's chunk
+program has no collective to begin with.
+
+Not here: the ``CollectiveGuard`` around each pass is ROADMAP item 17;
+the trace spans and the training metrics are item 20.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from photon_ml_tpu_torch.ops.losses import apply_weights, mask_margins
 from photon_ml_tpu_torch.ops.objective import GLMObjective
@@ -66,6 +76,7 @@ from photon_ml_tpu_torch.optimize.owlqn import pseudo_gradient
 from photon_ml_tpu_torch.parallel.data_parallel import (
     _CSC_APPLY, make_csc_diagonal_hessian, make_csc_path, resolve_sparse_grad,
 )
+from photon_ml_tpu_torch.parallel.multihost import process_count
 from photon_ml_tpu_torch.types import (
     LabeledBatch, SparseFeatures, resolve_device,
 )
@@ -94,7 +105,10 @@ class StreamStats:
     ``decode_s``: transfer-thread seconds waiting on the chunk source;
     ``transfer_s``: seconds filling pinned buffers and issuing copies;
     ``stall_s``: consumer seconds blocked on an empty ring; ``comm_s``: the
-    cross-process reduction (always 0 on one device); ``chunks``/``passes``:
+    cross-process reduction of each pass's partials (0 in a single
+    process), on CUDA timed by events around the collective on the pass's
+    stream, which add no host synchronization and are read once the fit
+    has ended (``as_dict``); ``chunks``/``passes``:
     chunks landed and passes streamed (gradient, Hessian-vector, diagonal,
     margin and line-search passes alike); ``kernel_passes``: the passes
     whose every chunk takes ``X^T d`` (gradient, Hessian-vector and
@@ -111,8 +125,13 @@ class StreamStats:
     kernel_passes: int = 0
     h2d_bytes: int = 0
     host_reads: int = 0
+    comm_events: list = dataclasses.field(default_factory=list, repr=False)
 
     def as_dict(self) -> dict:
+        for start, end in self.comm_events:
+            end.synchronize()  # already complete: the fit's last read
+            self.comm_s += start.elapsed_time(end) / 1e3
+        self.comm_events.clear()
         return {"decode_s": round(self.decode_s, 6),
                 "transfer_s": round(self.transfer_s, 6),
                 "stall_s": round(self.stall_s, 6),
@@ -434,6 +453,48 @@ def _kahan_add(acc, comp, x):
     return t, comp
 
 
+def _cross_process_sum(pairs, stats: Optional[StreamStats] = None):
+    """Fold a pass's Kahan pairs ``[(acc, comp), ...]`` into totals, summed
+    across processes.
+
+    Single process: ``acc - comp`` for each pair. Multi-process: every
+    process streamed its own rows; the pairs are packed into one buffer,
+    all-gathered over the world (``all_gather`` into a list, which NCCL
+    and gloo both run on device tensors), and each process's folded part
+    is added in rank order with compensation, so every process computes
+    the same totals from the same operands. The collective's seconds go
+    to ``stats`` (``StreamStats.comm_s``)."""
+    if process_count() == 1:
+        return [acc - comp for acc, comp in pairs]
+    flat = torch.cat([t.reshape(-1) for pair in pairs for t in pair])
+    parts = [torch.empty_like(flat) for _ in range(process_count())]
+    if flat.is_cuda:
+        stream = torch.cuda.current_stream(flat.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        dist.all_gather(parts, flat)
+        end.record(stream)
+        if stats is not None:
+            stats.comm_events.append((start, end))
+    else:
+        t0 = time.perf_counter()
+        dist.all_gather(parts, flat)
+        if stats is not None:
+            stats.comm_s += time.perf_counter() - t0
+    out, at = [], 0
+    for acc, _comp in pairs:
+        n = acc.numel()
+        tot, c = torch.zeros_like(acc), torch.zeros_like(acc)
+        for p in parts:
+            a = p[at:at + n].reshape(acc.shape)
+            ca = p[at + n:at + 2 * n].reshape(acc.shape)
+            tot, c = _kahan_add(tot, c, a - ca)
+        out.append(tot - c)
+        at += 2 * n
+    return out
+
+
 class _Reads:
     """Counts the streamed loops' blocking device-to-host reads."""
 
@@ -527,9 +588,11 @@ def streaming_value_and_grad(
             f_acc, f_comp = _kahan_add(f_acc, f_comp, f)
             g_acc, g_comp = _kahan_add(g_acc, g_comp, g)
         ops.stats.kernel_passes += 1
+        f_data, g_data = _cross_process_sum(
+            [(f_acc, f_comp), (g_acc, g_comp)], ops.stats)
         wr = objective.reg_mask(w)
-        return (f_acc - f_comp + 0.5 * l2 * torch.sum(wr * wr),
-                g_acc - g_comp + l2 * wr)
+        return (f_data + 0.5 * l2 * torch.sum(wr * wr),
+                g_data + l2 * wr)
 
     return fg
 
@@ -558,7 +621,8 @@ def streaming_hvp(
             acc, comp = _kahan_add(acc, comp,
                                    ops.chunk_hvp(w, v, batch, csc))
         ops.stats.kernel_passes += 1
-        return acc - comp + l2 * objective.reg_mask(v)
+        (total,) = _cross_process_sum([(acc, comp)], ops.stats)
+        return total + l2 * objective.reg_mask(v)
 
     return hvp
 
@@ -586,7 +650,7 @@ def streaming_hessian_diagonal(
     for _hc, batch, csc in ops.chunks(chunks):
         acc, comp = _kahan_add(acc, comp, ops.chunk_diag(w, batch, csc))
     ops.stats.kernel_passes += 1
-    total = acc - comp
+    (total,) = _cross_process_sum([(acc, comp)], ops.stats)
     return total + objective.reg_diagonal(total, l2)
 
 
@@ -864,8 +928,9 @@ def _fit_streaming_lbfgs_margin(objective, chunks, ops, w, l2, config,
             m1 = mask_margins(wts, t["mw"] + a * t["mp"])
             d = torch.sum(apply_weights(wts, loss.loss(m1, lab)) - l0, dim=1)
             acc, comp = _kahan_add(acc, comp, d)
+        (total,) = _cross_process_sum([(acc, comp)], ops.stats)
         ops.stats.host_reads += 1
-        return (acc - comp).cpu().numpy().astype(np.float64)
+        return total.cpu().numpy().astype(np.float64)
 
     f, g = fg(w, l2)
     g0_norm = read(torch.linalg.norm(g))

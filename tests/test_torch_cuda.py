@@ -476,3 +476,43 @@ def test_slow_consumer_over_the_ring_sees_every_chunk_intact(cuda):
         streaming._kahan_add = real
     want = sync(w, 1.0)
     assert torch.equal(got[1], want[1]) and float(got[0]) == float(want[0])
+
+
+def test_world1_nccl_fit_equals_no_mesh(cuda):
+    """A one-rank mesh over NCCL (``initialize_multihost`` on CUDA: backend
+    ``cpu:gloo,cuda:nccl``) fits bit for bit as ``mesh=None`` does, with
+    the kernel launched as often and the same host reads."""
+    import socket
+
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+    from photon_ml_tpu_torch.parallel.multihost import initialize_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=60)
+    try:
+        assert dist.get_backend() == "cpu:gloo,cuda:nccl"
+        mesh = make_mesh({"data": 1})
+        idx, y, dim = _fit_inputs()
+        batch = batch_from_numpy(idx, None, y, dim=dim, dtype=torch.float32,
+                                 device=cuda)
+        for optimizer in ("lbfgs", "tron"):
+            fits = []
+            for m in (None, mesh):
+                launches = multiply_prefix_sum.launches
+                res = fit_distributed(
+                    make_objective("logistic"), batch,
+                    torch.zeros(dim, device=cuda), l2=1.0,
+                    optimizer=optimizer,
+                    config=OptimizerConfig(max_iters=8, tolerance=0.0),
+                    sparse_grad="csc_kernel", mesh=m)
+                fits.append((res, multiply_prefix_sum.launches - launches))
+            (one, n_one), (meshed, n_meshed) = fits
+            assert torch.equal(one.w, meshed.w), optimizer
+            assert n_one == n_meshed > 0
+            assert one.host_syncs == meshed.host_syncs
+    finally:
+        dist.destroy_process_group()

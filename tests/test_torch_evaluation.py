@@ -66,8 +66,6 @@ def test_histogram_auc_matches(scored):
     if positive:  # 4096 bins: close to the exact AUC
         fine = float(td.histogram_auc(_t(scores), _t(labels), _t(weights)))
         assert abs(fine - je.auc(scores, labels, weights)) <= 1e-3
-    with pytest.raises(ValueError, match="mesh"):
-        td.histogram_auc(_t(scores), _t(labels), mesh=object())
 
 
 POINTWISE = ["auc", "rmse", "logistic_loss", "poisson_loss", "squared_loss",

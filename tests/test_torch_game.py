@@ -297,9 +297,6 @@ def test_score_game_model_matches_jax(data):
 
 
 _DEFERRED_CASES = [
-    (lambda: train_random_effect(None, np.zeros(1), mesh=object(),
-                                 device="cpu"), "item 15"),
-    (lambda: CoordinateDescent([], mesh=object(), device="cpu"), "item 15"),
     (lambda: CoordinateDescent([], entity_shard=object(), device="cpu"),
      "item 17"),
     (lambda: CoordinateDescent([], entity_table_budget_bytes=1,
@@ -312,9 +309,10 @@ _DEFERRED_CASES = [
 
 
 # the ids keep their numbers from before the two streaming options (item
-# 16, the first and the last case) were ported and left this list
+# 16) and the two mesh options (item 15, the first two cases) were ported
+# and left this list
 @pytest.mark.parametrize("make, item", _DEFERRED_CASES, ids=[
-    f"make{i + 1}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
+    f"make{i + 3}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
 def test_deferred_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()

@@ -295,11 +295,8 @@ def test_each_package_scores_its_own_model_alike(fixture, runs):
 
 
 _DEFERRED_CASES = [
-    (["--coordinator-address", "localhost:1234"], "15 and 17"),
-    (["--num-processes", "2"], "15 and 17"),
-    (["--process-id", "0"], "15 and 17"),
-    (["--entity-shards", "2"], "15 and 17"),
-    (["--re-table-budget-mb", "10"], "15 and 17"),
+    (["--entity-shards", "2"], "17"),
+    (["--re-table-budget-mb", "10"], "17"),
     (["--auto-resume"], "17"),
     (["--max-rank-failures", "1"], "17"),
     (["--publish-to", "registry"], "19"),
@@ -309,9 +306,9 @@ _DEFERRED_CASES = [
 
 
 # the ids keep their numbers from before the six streaming flags (item 16)
-# were ported and left this list
+# and the three multi-process flags (item 15) were ported and left this list
 @pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
-    f"flags{i + 6}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
+    f"flags{i + 9}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
 def test_deferred_flag_raises(tmp_path, flags, item):
     argv = ["--train-data", "absent.avro", "--coordinates", "[]",
             "--output-dir", str(tmp_path / "o"), "--device", "cpu", *flags]

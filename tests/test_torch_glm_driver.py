@@ -201,9 +201,6 @@ def test_diagnostics_report_matches(runs):
 
 
 _DEFERRED_CASES = [
-    (["--coordinator-address", "localhost:1234"], "15 and 17"),
-    (["--num-processes", "2"], "15 and 17"),
-    (["--process-id", "0"], "15 and 17"),
     (["--auto-resume"], "17"),
     (["--max-rank-failures", "1"], "17"),
     (["--auto-resume", "--path-screen", "strong"], "17"),
@@ -213,9 +210,9 @@ _DEFERRED_CASES = [
 
 
 # the ids keep their numbers from before the six streaming flags (item 16)
-# were ported and left this list
+# and the three multi-process flags (item 15) were ported and left this list
 @pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
-    f"flags{i + 6}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
+    f"flags{i + 9}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
 def test_deferred_flag_raises(tmp_path, flags, item):
     argv = ["--train-data", "absent.avro", "--output-dir", str(tmp_path / "o"),
             "--device", "cpu", *flags]

@@ -29,7 +29,7 @@ from photon_ml_tpu_torch.parallel.streaming import (
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "photon_ml_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multiprocess_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "photon_ml_tpu")
 
 
@@ -69,8 +69,10 @@ def test_every_module_is_checked():
                    "io/durable", "cli/feature_indexing_driver",
                    "cli/game_training_driver", "cli/game_scoring_driver",
                    "cli/_common", "parallel/streaming", "io/stream_source",
-                   "io/chunk_cache", "utils/transfer_budget"):
+                   "io/chunk_cache", "utils/transfer_budget",
+                   "parallel/mesh", "parallel/multihost"):
         assert f"photon_ml_tpu_torch/{module}.py" in names, module
+    assert "tests/torch_multiprocess_worker.py" in names
 
 
 def test_import_loads_no_jax():

@@ -216,9 +216,6 @@ def test_deferred_and_unknown_optimizers_raise(data):
     with pytest.raises(ValueError, match="unknown random-effect optimizer"):
         train_random_effect(data["port"], data["offs"], optimizer="sgd",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_random_effect(data["port"], data["offs"], mesh=object(),
-                            device="cpu")
 
 
 def test_resolve_re_optimizer():
