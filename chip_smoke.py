@@ -60,7 +60,7 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     geometric from ``lambda_max()`` down to 1e-2 of it, walked with
     ``screen="strong"`` and with ``screen="off"``, first in float32 with the
     GLM driver's default solver settings (100 iterations, tolerance 1e-7),
-    then in float64 over the grid's first 10 lambdas (OWL-QN, at most 200
+    then in float64 over the grid's first 6 lambdas (OWL-QN, at most 200
     iterations per solve at tolerance 0). Per lambda it prints the candidates, the restricted width, the KKT
     rounds, both solve times and how far the two walks' solutions differ.
     Gates, in both dtypes: every lambda certified; at the coordinates
@@ -172,11 +172,51 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     ``--num-processes 1 --process-id 0 --coordinator-address`` on phase 9's
     files (one lambda) writes a model byte-identical to the run without
     the flags.
+18. recovery, after phase 17 (``parallel.resilience``, ``recovery``,
+    ``entity_shard``, ``fault_injection``), four legs:
+    (a) two ranks of this script on the one card over gloo
+    (``--recovery-rank``), each building its own half of phase 12's
+    random-effect buckets once (``EntityShardSpec(2, rank)``, a
+    ``dataset_cache``) and running 3 entity-sharded sweeps of phase 12's
+    data and coordinates in float32 through ``GameEstimator.fit``, twice:
+    uninterrupted, then with ``Fault(site="cd.step", kind="raise",
+    process=1, at=4)`` (sweep 1's ``per_user`` step, after sweep 1's
+    commit) under a fresh ``RecoveryManager(max_rank_failures=0)``. Gates:
+    one rollback and one recovery; the second run's coefficients and AUC
+    history bit-equal to the first's on each rank and the ranks equal;
+    its kernel launches the first run's plus the rolled-back sweep's
+    fixed fit; the first run within 1e-3 relative L2 (coefficients) and
+    1e-3 (AUC) of phase 12's one-rank sweeps: the sharded buckets' widths
+    differ from one rank's, so their float32 sums round apart (ROADMAP
+    Queue 3). Each rank prints the launches, the
+    snapshot and recovery seconds and the rows and bytes exchanged per
+    sweep. (b) Inside phase 9's directory, the GLM driver at
+    ``--num-processes 1`` with a grid of 2 lambdas: uninterrupted; killed
+    in a child process with ``PHOTON_ML_TPU_FAULTS=[{"site": "glm.lambda",
+    "kind": "device_loss", "at": 1}]`` (exit 75, ``RESUME_GLM.npz``
+    left); rerun with ``--auto-resume`` (exit 0, the marker consumed,
+    ITERS + 1 launches: only the second lambda is fitted), its models
+    byte-identical to the uninterrupted run's. (c) In the same two ranks
+    as (a), last: rank 1 stalls at ``cd.step`` for T + 30 s with
+    ``PHOTON_ML_TPU_BARRIER_TIMEOUT_S=T`` (T = 10): rank 0 raises
+    ``WatchdogTimeout`` within T + 5 s of entering its barrier,
+    ``classify_failure`` maps it to ``rank_loss`` and the production
+    transport, which cannot shrink, escalates it; this process reaps both
+    ranks. (d) A child process (``--sticky-error``) runs the GLM driver on
+    the card over a grid of 2 lambdas and provokes a device-side assert
+    (an out-of-range CUDA index, then a synchronize) as the second lambda
+    starts: torch's ``torch.AcceleratorError`` must satisfy
+    ``is_device_loss``, the driver must exit 75 with a marker holding the
+    first lambda (written without reading the card), a later CUDA call
+    must fail too, and the injected ``device_loss`` must have the same
+    type and message form; the kernel launched on an empty grid
+    (a real, non-sticky ``cudaErrorInvalidConfiguration``) must not
+    satisfy it, and the card must go on working.
 
 Each fit's launch count is set to 0 just before it and read just after
 (for phases 9, 13 and 15: before and after each driver run; for phases 10
 and 12: before and after each of the four walks and the estimator's fit;
-in phase 17, in each rank's own process).
+in phases 17 and 18, in each rank's own process).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object, and
@@ -215,9 +255,10 @@ DRIVER_MIN_AUC = 0.6
 # lambdas from lambda_max down to 1e-2 lambda_max
 PATH_ALPHA, PATH_LAMBDAS, PATH_SPAN = 0.9, 20, 1e-2
 PATH_ITERS = 200  # per float64 solve, tolerance 0 (see phase_path)
-# the float64 walks stop after the grid's first 10 lambdas, down to about
-# 0.11 lambda_max: the last 10 took 40-56 s and run in float32 as well
-PATH_F64_LAMBDAS = 10
+# the float64 walks stop after the grid's first 6 lambdas, down to about
+# 0.30 lambda_max: the last 14 run in float32 as well, and the script's
+# time limit holds phase 18 too
+PATH_F64_LAMBDAS = 6
 PATH_F32_ITERS, PATH_F32_TOL = 100, 1e-7  # the GLM driver's defaults
 TOL_SCAN_F64 = 1e-12  # the float64 kernel: |err_i| <= this * cumsum|x|
 TOL_GRAD = {torch.float32: 1e-6, torch.float64: 1e-10}  # rel L2 of a
@@ -1287,7 +1328,8 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
             and diff <= TOL_SCORE):
         raise RuntimeError(f"GameTransformer scores differ: {diff:.3e}")
     auc0 = [rec["auc"] for rec in result.history if rec["iteration"] == 0][-1]
-    return launches, dict(train=train, val=val, cache=cache, auc0=auc0)
+    return launches, dict(train=train, val=val, cache=cache, auc0=auc0,
+                          result=result)
 
 
 def phase_game_stream(ctx, dev, smi):
@@ -2326,6 +2368,584 @@ def phase_mp_world2(indices, labels, refs, game_ctx, dev, smi):
             for r, c in enumerate(counts)}
 
 
+# -- phase 18: recovery ----------------------------------------------------
+RECOVERY_SWEEPS = 3
+RECOVERY_FAULT_AT = 4  # cd.step occurrence: sweep 1's per_user step
+WATCHDOG_T = 10.0  # leg (c)'s barrier timeout, seconds
+WATCHDOG_SLACK_S = 5.0  # rank 0 must detect the stall within T + this
+RECOVERY_TIMEOUT_S = 300  # the ranks, from spawn to leg (c)
+RECOVERY_GRID = ("1", "0.1")  # leg (b)'s lambdas
+RANK_DEVICE = "cuda"  # the ranks' device ("cpu" in a CPU rehearsal)
+
+
+def entity_table(model, name):
+    """(entity ids sorted, projections, coefficients) of a random
+    coordinate, one row per entity, padded to the widest bucket: the same
+    table whatever the bucket layout (one rank's, or a shard's)."""
+    buckets = model[name].buckets
+    width = max(int(np.asarray(b.projection).shape[1]) for b in buckets)
+    ids, proj, coef = [], [], []
+    for b in buckets:
+        p = np.asarray(b.projection)
+        c = np.asarray(b.coefficients)
+        pad = width - p.shape[1]
+        ids.append(np.asarray(b.entity_ids))
+        proj.append(np.pad(p, ((0, 0), (0, pad)), constant_values=-1))
+        coef.append(np.pad(c, ((0, 0), (0, pad))))
+    ids = np.concatenate(ids)
+    order = np.argsort(ids, kind="stable")
+    return ids[order], np.concatenate(proj)[order], \
+        np.concatenate(coef)[order]
+
+
+def recovery_rank(rank: int, root: str) -> int:
+    """Phase 18 (a) and (c), one rank of MP_WORLD on the one card: a gloo
+    group through a FileStore in ``root``; this rank's half of phase 12's
+    random-effect buckets built once, then the uninterrupted run and the
+    rolled-back one (``recovery{r}.json``, ``recovery{r}.npz``), then the
+    watchdog leg (``watchdog{r}.json``), after which the group is unusable
+    and the process exits without a teardown."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.game import descent
+    from photon_ml_tpu_torch.ops import kernel_build
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.parallel import fault_injection
+    from photon_ml_tpu_torch.parallel.entity_shard import EntityShardSpec
+    from photon_ml_tpu_torch.parallel.recovery import (
+        RecoveryManager, classify_failure, recovery_supported,
+    )
+    from photon_ml_tpu_torch.parallel.resilience import (
+        PeerFailure, TorchTransport,
+    )
+
+    t_start = time.perf_counter()
+    kernel_build.load_library()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(root, "store"), MP_WORLD),
+        rank=rank, world_size=MP_WORLD,
+        timeout=datetime.timedelta(seconds=RECOVERY_TIMEOUT_S))
+    dev = torch.device(RANK_DEVICE)
+    lines = []
+
+    def say(msg):
+        lines.append(f"  rank {rank}: {msg}")
+
+    def dump(name, obj):
+        tmp = os.path.join(root, f".{name}")
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, os.path.join(root, name))
+
+    t0 = time.perf_counter()
+    train, val = make_game_data(GAME_ROWS, GAME_VAL_ROWS, SEED)
+    spec = EntityShardSpec(MP_WORLD, rank)
+    cache = {}
+    descent.CoordinateDescent(game_configs(), device=dev, dataset_cache=cache,
+                              entity_shard=spec)._build_random_states(
+        train, val, {}, {})
+    owned = {key[2]: entry[1].num_entities for key, entry in cache.items()
+             if key[0] == "re_data"}
+    say(f"gloo group up, data drawn and this rank's buckets built "
+        f"{time.perf_counter() - t_start:.2f} s after start (buckets "
+        f"{time.perf_counter() - t0:.2f} s; entities owned {owned})")
+
+    fixed_launches, published = [], []
+    real_fit, real_changed = descent._FixedState.fit, descent._changed_rows
+
+    def counted_fit(self, offsets_full, opt_config=None):
+        before = multiply_prefix_sum.launches
+        res = real_fit(self, offsets_full, opt_config)
+        fixed_launches.append(multiply_prefix_sum.launches - before)
+        return res
+
+    def counted_changed(new_np, old_np):
+        rows, vals = real_changed(new_np, old_np)
+        published.append(len(rows))
+        return rows, vals
+
+    descent._FixedState.fit = counted_fit
+    descent._changed_rows = counted_changed
+
+    def run(recovery):
+        est = GameEstimator(task="logistic", n_iterations=RECOVERY_SWEEPS,
+                            evaluators=["auc"], device=dev,
+                            entity_shard=spec, recovery=recovery)
+        fixed_launches.clear()
+        published.clear()
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t_run = time.perf_counter()
+        result = est.fit(train, val, [game_configs()],
+                         dataset_cache=cache)[0]
+        torch.cuda.synchronize()
+        return dict(result=result, seconds=time.perf_counter() - t_run,
+                    launches=multiply_prefix_sum.launches,
+                    fixed_launches=list(fixed_launches),
+                    published=list(published))
+
+    runs, arrays = {}, {}
+    runs["uninterrupted"] = run(None)
+    fault_injection.install([fault_injection.Fault(
+        site="cd.step", kind="raise", process=1, at=RECOVERY_FAULT_AT)])
+    rec = RecoveryManager(os.path.join(root, "recovery"),
+                          max_rank_failures=0, backoff_s=0.05, jitter=0.0)
+    runs["rollback"] = run(rec)
+    fault_injection.clear()
+    out = {"lines": lines, "stats": rec.as_dict()}
+    for name, r in runs.items():
+        hist = r["result"].history
+        comm = {}
+        for h in hist:
+            comm.setdefault(h["iteration"], 0)
+            comm[h["iteration"]] += int(h.get("comm_bytes", 0))
+        # two exchanges a random step (train and validation rows), two
+        # random coordinates a sweep; a rolled-back run also counts the
+        # exchanges of the sweep it threw away
+        rows = [sum(r["published"][i:i + 4])
+                for i in range(0, len(r["published"]), 4)]
+        out[name] = dict(seconds=r["seconds"], launches=r["launches"],
+                         fixed_launches=r["fixed_launches"],
+                         auc=[h["auc"] for h in hist],
+                         rows_published=rows,
+                         bytes_gathered_by_sweep=[comm[i]
+                                                  for i in sorted(comm)])
+        say(f"{name}: {RECOVERY_SWEEPS} sweeps {r['seconds']:.3f} s, "
+            f"{r['launches']} launches (fixed fits {r['fixed_launches']}), "
+            f"rows published by this rank per 4 exchanges {rows}, bytes "
+            f"gathered per kept sweep "
+            f"{out[name]['bytes_gathered_by_sweep']}, final auc "
+            f"{hist[-1]['auc']:.6f}")
+        model = r["result"].model
+        arrays[f"{name}_fixed"] = model["fixed"].model.coefficients \
+            .means.cpu().numpy()
+        for coord in ("per_user", "per_item"):
+            ids, proj, coef = entity_table(model, coord)
+            arrays[f"{name}_{coord}_ids"] = ids
+            arrays[f"{name}_{coord}_proj"] = proj
+            arrays[f"{name}_{coord}_coef"] = coef
+    st = out["stats"]
+    say(f"rollback run: {st['rollbacks']} rollback(s), {st['recoveries']} "
+        f"recovery(ies), {st['snapshots']} snapshots in "
+        f"{st['snapshot_seconds']:.3f} s, recovery {st['recovery_seconds']:.3f}"
+        f" s")
+    np.savez(os.path.join(root, f"recovery{rank}.npz"), **arrays)
+    dump(f"recovery{rank}.json", out)
+
+    # (c) last: a watchdog abandons a collective, and the group with it
+    os.environ["PHOTON_ML_TPU_BARRIER_TIMEOUT_S"] = str(WATCHDOG_T)
+    fault_injection.install([fault_injection.Fault(
+        site="cd.step", kind="delay", process=1, at=1,
+        delay_s=WATCHDOG_T + 30)])
+    entered = {}
+    real_status = TorchTransport.allgather_status
+
+    def timed_status(self, code, timeout):
+        entered["t"] = time.monotonic()
+        return real_status(self, code, timeout)
+
+    TorchTransport.allgather_status = timed_status
+    rec_c = RecoveryManager(os.path.join(root, "recovery_c"),
+                            max_rank_failures=1, backoff_s=0.05)
+    leg = {"lines": []}
+    lines.clear()
+    try:
+        run(rec_c)
+        leg["outcome"] = "returned"
+    except PeerFailure as e:
+        leg.update(outcome=type(e).__name__,
+                   detect_s=time.monotonic() - entered["t"],
+                   failure_class=classify_failure(e),
+                   recovery_supported=recovery_supported(),
+                   failed=sorted(e.failed))
+        say(f"watchdog leg: {type(e).__name__} {leg['detect_s']:.3f} s "
+            f"after entering the barrier (T = {WATCHDOG_T:g} s), class "
+            f"{leg['failure_class']}, escalated (recovery_supported "
+            f"{leg['recovery_supported']})")
+    leg["lines"] = lines
+    dump(f"watchdog{rank}.json", leg)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def sticky_error_probe() -> int:
+    """Phase 18 (d), in a process of its own: a non-sticky CUDA error (the
+    kernel launched on an empty grid) leaves the card usable and is not a
+    device loss; a device-side assert, provoked inside the GLM driver as
+    its second lambda starts, is one: the driver exits 75 with the first
+    lambda in its marker, a later CUDA call fails too, and the error
+    matches the injected ``device_loss`` in type and message form. Prints
+    one JSON line."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from photon_ml_tpu_torch.ops import kernel_build, kernels
+    from photon_ml_tpu_torch.parallel import fault_injection
+    from photon_ml_tpu_torch.utils import is_device_loss
+
+    form = re.compile(r"CUDA error: [^\n]+\nSearch for `cudaError\w+'")
+    out = {}
+    lib = kernel_build.load_library()
+    d = torch.zeros(kernels.TILE, device="cuda")
+    local = torch.empty(kernels.TILE, dtype=torch.float64, device="cuda")
+    totals = torch.empty(1, dtype=torch.float64, device="cuda")
+    err = lib.photon_mps_f32(None, d.data_ptr(), local.data_ptr(),
+                             totals.data_ptr(), kernels.TILE, 0,
+                             torch.cuda.current_stream().cuda_stream)
+    soft = kernels.launch_error(lib, err, "multiply_prefix_sum on an empty "
+                                          "grid")
+    out["non_sticky"] = dict(code=int(err), type=type(soft).__name__,
+                             message=str(soft).split("\n")[0],
+                             device_loss=is_device_loss(soft))
+    out["non_sticky"]["card_works_after"] = float(
+        torch.ones(4, device="cuda").sum()) == 4.0
+
+    fault_injection.install([fault_injection.Fault(site="probe",
+                                                   kind="device_loss")])
+    try:
+        fault_injection.check("probe")
+    except Exception as e:
+        injected = e
+    fault_injection.clear()
+
+    # the real assert fires inside the GLM driver as its second lambda
+    # starts, so the driver must write its marker without reading the card
+    from photon_ml_tpu_torch.cli import glm_driver
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sticky_")
+    rng = np.random.default_rng(SEED)
+    X = (rng.random((512, 16)) < 0.5) * rng.normal(size=(512, 16))
+    y = rng.random(512) < 1 / (1 + np.exp(-X.sum(axis=1)))
+    with open(os.path.join(root, "train.svm"), "w") as f:
+        for xi, yi in zip(X, y):
+            f.write(" ".join([str(2 * int(yi) - 1)] + [
+                f"{j + 1}:{xi[j]:.6f}" for j in np.nonzero(xi)[0]]) + "\n")
+    real_check, sites, caught = fault_injection.check, [], {}
+
+    def sticky_check(site):
+        if site == "glm.lambda":
+            sites.append(site)
+            if len(sites) == 2:
+                try:
+                    x = torch.zeros(16, device="cuda")
+                    x[torch.tensor([1 << 20], device="cuda")].sum()
+                    torch.cuda.synchronize()
+                except Exception as e:
+                    caught["real"] = e
+                    raise
+        real_check(site)
+
+    fault_injection.check = sticky_check
+    out_dir = os.path.join(root, "out")
+    try:
+        rc = glm_driver.main([
+            "--train-data", os.path.join(root, "train.svm"),
+            "--input-format", "libsvm", "--reg-weights", *RECOVERY_GRID,
+            "--max-iters", "5", "--compute-variances",
+            "--output-dir", out_dir])
+    except Exception as e:
+        rc = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    fault_injection.check = real_check
+    marker = os.path.join(out_dir, "RESUME_GLM.npz")
+    out["driver"] = dict(
+        exit=rc, marker=os.path.exists(marker),
+        marker_lambdas=(
+            [float(e["lam"]) for e in np.load(marker, allow_pickle=True)[
+                "payload"].item()["entries"]]
+            if os.path.exists(marker) else None))
+    shutil.rmtree(root, ignore_errors=True)
+    real = caught.get("real")
+    later = None
+    try:
+        torch.ones(4, device="cuda").sum().item()
+        torch.cuda.synchronize()
+    except Exception as e:
+        later = e
+    out["sticky"] = dict(
+        type=type(real).__name__,
+        message=str(real).split("\n")[0],
+        device_loss=real is not None and is_device_loss(real),
+        later_call_failed=later is not None,
+        later_device_loss=later is not None and is_device_loss(later),
+        injected_type=type(injected).__name__,
+        same_type=type(real) is type(injected),
+        same_form=bool(real is not None and form.match(str(real))
+                       and form.match(str(injected))))
+    print(json.dumps(out))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_recovery(game_ctx, dev, smi):
+    """Phase 18 (a), (c) and (d): the ranks of ``recovery_rank`` and the
+    ``sticky_error_probe`` process, started together; the gates of the
+    module docstring. Returns the launches by leg and rank."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.parallel.recovery import RANK_LOSS
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as root:
+        t0 = time.perf_counter()
+        logs = [os.path.join(root, f"rank{r}.log") for r in range(MP_WORLD)]
+        procs = []
+        for r in range(MP_WORLD):
+            with open(logs[r], "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--recovery-rank", str(r),
+                     root], stdout=log, stderr=subprocess.STDOUT))
+        probe = subprocess.Popen([sys.executable, __file__, "--sticky-error"],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+        # rank 0 ends after leg (c); rank 1 is still in its stall then
+        deadline = time.monotonic() + RECOVERY_TIMEOUT_S + 60
+        failed = None
+        while procs[0].poll() is None and failed is None:
+            if procs[1].poll() not in (None, 0):
+                failed = 1
+            if time.monotonic() > deadline:
+                failed = "timeout"
+            time.sleep(0.2)
+        t_exit = time.perf_counter() - t0
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if failed is None and procs[0].returncode != 0:
+            failed = 0
+        try:
+            probe_out, probe_err = probe.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            probe.kill()
+            probe_out, probe_err = probe.communicate()
+        missing = [name for name in (
+            [f"recovery{r}.json" for r in range(MP_WORLD)]
+            + [f"recovery{r}.npz" for r in range(MP_WORLD)]
+            + ["watchdog0.json"])
+            if not os.path.exists(os.path.join(root, name))]
+        if failed is not None or missing:
+            for r in range(MP_WORLD):
+                with open(logs[r]) as f:
+                    print(f"rank {r} output:\n{f.read()[-4000:]}")
+            raise RuntimeError(f"phase 18: rank {failed} failed or results "
+                               f"missing {missing}; exit codes "
+                               f"{[p.returncode for p in procs]}")
+        print(f"phase 18 (a, c): {MP_WORLD} ranks on one card over gloo, "
+              f"{t_exit:.2f} s from spawn to rank 0's exit (rank 1 reaped "
+              f"in its stall, exit code {procs[1].returncode})")
+        res = []
+        for r in range(MP_WORLD):
+            with open(os.path.join(root, f"recovery{r}.json")) as f:
+                res.append(json.load(f))
+            for line in res[r]["lines"]:
+                print(line)
+        arrays = [dict(np.load(os.path.join(root, f"recovery{r}.npz")))
+                  for r in range(MP_WORLD)]
+        with open(os.path.join(root, "watchdog0.json")) as f:
+            watchdog = json.load(f)
+        for line in watchdog["lines"]:
+            print(line)
+
+    # (a) the rolled-back run against the uninterrupted one, on each rank
+    for r, (out, arr) in enumerate(zip(res, arrays)):
+        st, clean, rolled = out["stats"], out["uninterrupted"], \
+            out["rollback"]
+        if (st["rollbacks"], st["recoveries"]) != (1, 1):
+            raise RuntimeError(f"phase 18 rank {r}: {st}")
+        unequal = [k for k in arr if k.startswith("uninterrupted_")
+                   and not np.array_equal(
+                       arr[k], arr[k.replace("uninterrupted_", "rollback_")])]
+        if unequal or rolled["auc"] != clean["auc"]:
+            raise RuntimeError(f"phase 18 rank {r}: the rolled-back run "
+                               f"differs from the uninterrupted one in "
+                               f"{unequal or 'its auc history'}")
+        fits = clean["fixed_launches"]
+        extra = rolled["launches"] - clean["launches"]
+        if (min(fits) < 1 or clean["launches"] < 1
+                or extra != fits[1]
+                or rolled["fixed_launches"] != fits[:2] + fits[1:]):
+            raise RuntimeError(
+                f"phase 18 rank {r}: launches {clean['launches']} "
+                f"({fits}) uninterrupted, {rolled['launches']} "
+                f"({rolled['fixed_launches']}) rolled back")
+    for key in arrays[0]:
+        if not np.array_equal(arrays[0][key], arrays[1][key]):
+            raise RuntimeError(f"phase 18: the ranks differ in {key}")
+    print(f"  rolled back and uninterrupted runs equal bit for bit on each "
+          f"rank (coefficients of all three coordinates and the auc "
+          f"history), the ranks equal; the rollback cost "
+          f"{res[0]['rollback']['launches'] - res[0]['uninterrupted']['launches']}"
+          f" launches, sweep 1's fixed fit")
+    # the uninterrupted sharded run against phase 12's one-rank run: each
+    # rank buckets only its own entities, so a bucket's padded widths, and
+    # with them the float32 reduction lengths of its solves, differ from
+    # the one-rank layout's (ROADMAP Queue 3)
+    ref = game_ctx["result"]
+    got_all = [arrays[0]["uninterrupted_fixed"]]
+    want_all = [ref.model["fixed"].model.coefficients.means.cpu().numpy()]
+    for coord in ("per_user", "per_item"):
+        ids, proj, coef = entity_table(ref.model, coord)
+        mine = [arrays[0][f"uninterrupted_{coord}_{k}"]
+                for k in ("ids", "proj", "coef")]
+        width = max(proj.shape[1], mine[1].shape[1])
+        if not (np.array_equal(ids, mine[0]) and np.array_equal(
+                np.pad(proj, ((0, 0), (0, width - proj.shape[1])),
+                       constant_values=-1),
+                np.pad(mine[1], ((0, 0), (0, width - mine[1].shape[1])),
+                       constant_values=-1))):
+            raise RuntimeError(f"phase 18: {coord}'s entities or supports "
+                               "differ from phase 12's")
+        want_all.append(np.pad(coef, ((0, 0), (0, width - coef.shape[1]))))
+        got_all.append(np.pad(mine[2],
+                              ((0, 0), (0, width - mine[2].shape[1]))))
+    got_all = np.concatenate([a.ravel() for a in got_all]).astype(np.float64)
+    want_all = np.concatenate([a.ravel() for a in want_all]).astype(
+        np.float64)
+    worst = float(np.abs(got_all - want_all).max())
+    rel = float(np.linalg.norm(got_all - want_all) / np.linalg.norm(want_all))
+    auc, auc_ref = res[0]["uninterrupted"]["auc"][-1], \
+        ref.history[-1]["auc"]
+    print(f"  uninterrupted sharded run vs phase 12's one-rank run: "
+          f"coefficients rel L2 {rel:.3e} (tol {TOL_FIT}), max |diff| "
+          f"{worst:.3e}; final device auc {auc:.6f} vs {auc_ref:.6f} (tol "
+          f"{TOL_GAME_STREAM_AUC}), on {smi}")
+    if not (rel <= TOL_FIT and abs(auc - auc_ref) <= TOL_GAME_STREAM_AUC):
+        raise RuntimeError("phase 18: the entity-sharded run differs from "
+                           "the one-rank run")
+
+    # (c) the watchdog
+    if not (watchdog.get("outcome") == "WatchdogTimeout"
+            and watchdog["failure_class"] == RANK_LOSS
+            and watchdog["recovery_supported"] is False
+            and watchdog["detect_s"] <= WATCHDOG_T + WATCHDOG_SLACK_S):
+        raise RuntimeError(f"phase 18 watchdog leg: {watchdog}")
+    print(f"  (c) rank 0: WatchdogTimeout {watchdog['detect_s']:.3f} s after "
+          f"entering its barrier (T = {WATCHDOG_T:g} s, gate T + "
+          f"{WATCHDOG_SLACK_S:g} s), rank_loss, escalated on {smi}")
+
+    # (d) the sticky error
+    try:
+        probe_res = json.loads(probe_out.decode().strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise RuntimeError(f"phase 18 (d): no result, exit code "
+                           f"{probe.returncode}:\n"
+                           f"{probe_err.decode()[-3000:]}") from None
+    soft, hard, drv = probe_res["non_sticky"], probe_res["sticky"], \
+        probe_res["driver"]
+    print(f"  (d) non-sticky: {soft['type']} '{soft['message']}' (code "
+          f"{soft['code']}): is_device_loss {soft['device_loss']}, the card "
+          f"works after it {soft['card_works_after']}; sticky: "
+          f"{hard['type']} '{hard['message']}': is_device_loss "
+          f"{hard['device_loss']}, a later CUDA call fails "
+          f"{hard['later_call_failed']} (a device loss too: "
+          f"{hard['later_device_loss']}), injected {hard['injected_type']} of"
+          f" the same type {hard['same_type']} and form {hard['same_form']};"
+          f" the GLM driver, asserted at its second lambda: exit "
+          f"{drv['exit']}, marker {drv['marker']} holding lambdas "
+          f"{drv['marker_lambdas']}")
+    if not (soft["code"] != 0 and soft["type"] == "AcceleratorError"
+            and not soft["device_loss"] and soft["card_works_after"]
+            and hard["device_loss"] and hard["later_call_failed"]
+            and hard["same_type"] and hard["same_form"]
+            and drv["exit"] == 75 and drv["marker"]
+            and drv["marker_lambdas"] == [float(RECOVERY_GRID[0])]):
+        raise RuntimeError(f"phase 18 (d): {probe_res}")
+    return {f"rank{r}": {k: out[k]["launches"]
+                         for k in ("uninterrupted", "rollback")}
+            for r, out in enumerate(res)}
+
+
+def phase_recovery_driver(train_dir, val_dir, root, dev, smi):
+    """Phase 18 (b), inside phase 9's directory: the GLM driver at
+    ``--num-processes 1`` over RECOVERY_GRID, uninterrupted; killed in a
+    child process at its second lambda by ``PHOTON_ML_TPU_FAULTS`` (exit
+    75, the marker left); resumed with ``--auto-resume`` (exit 0, the
+    marker consumed, ITERS + 1 launches); the resumed models
+    byte-identical to the uninterrupted run's. Returns the launches."""
+    import filecmp
+    import os
+
+    import photon_ml_tpu_torch
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+
+    def argv(out):
+        return ["--train-data", train_dir, "--validation-data", val_dir,
+                "--input-format", "avro", "--hash-dim", str(DRIVER_HASH_DIM),
+                "--reg-weights", *RECOVERY_GRID, "--optimizer", "lbfgs",
+                "--max-iters", str(ITERS), "--tolerance", "0",
+                "--evaluators", "auc", "--device", str(dev),
+                "--num-processes", "1", "--process-id", "0",
+                "--coordinator-address", f"127.0.0.1:{_free_port()}",
+                "--output-dir", out]
+
+    def counted(args):
+        torch.cuda.synchronize()
+        multiply_prefix_sum.launches = 0
+        t0 = time.perf_counter()
+        rc = glm_driver.main(args)
+        torch.cuda.synchronize()
+        return rc, multiply_prefix_sum.launches, time.perf_counter() - t0
+
+    clean, killed = (os.path.join(root, f"out_recovery_{n}")
+                     for n in ("clean", "killed"))
+    repo = os.path.dirname(os.path.dirname(
+        os.path.abspath(photon_ml_tpu_torch.__file__)))
+    env = dict(os.environ, PHOTON_ML_TPU_FAULTS=json.dumps(
+        [{"site": "glm.lambda", "kind": "device_loss", "at": 1}]),
+        PYTHONPATH=os.pathsep.join(
+            [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    # the child to be killed starts first and runs beside the
+    # uninterrupted run (its own process, its own output directory)
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.glm_driver",
+         *argv(killed)], env=env, cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    rc, launches_clean, t_clean = counted(argv(clean))
+    try:
+        _, child_err = child.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        _, child_err = child.communicate()
+    t_killed = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"phase 18 (b): the uninterrupted run exited {rc}")
+    marker = os.path.join(killed, "RESUME_GLM.npz")
+    left = os.path.exists(marker)
+    rc, launches_resumed, t_resumed = counted(argv(killed) + ["--auto-resume"])
+    consumed = not os.path.exists(marker)
+    sub = os.path.join("fixed-effect", "global")
+    same = []
+    for model in ("best", *(os.path.join("all", f"lambda-{float(g):g}")
+                           for g in RECOVERY_GRID)):
+        a, b = (os.path.join(d, model, sub) for d in (clean, killed))
+        names = sorted(os.listdir(a))
+        match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+        same.append(match == names and not mismatch and not errors)
+    print(f"phase 18 (b): glm_driver --num-processes 1 over lambdas "
+          f"{list(RECOVERY_GRID)}: uninterrupted {t_clean:.3f} s, "
+          f"{launches_clean} launches; killed child beside it "
+          f"(PHOTON_ML_TPU_FAULTS, device loss at the second lambda) exit "
+          f"{child.returncode} after {t_killed:.3f} s, marker left {left}; --auto-resume exit {rc} "
+          f"in {t_resumed:.3f} s, {launches_resumed} launches, marker "
+          f"consumed {consumed}; the models equal byte for byte: {same}, "
+          f"on {smi}")
+    if not (child.returncode == 75 and left and rc == 0 and consumed
+            and all(same) and launches_clean == 2 * (ITERS + 1)
+            and launches_resumed == ITERS + 1):
+        raise RuntimeError(f"phase 18 (b) failed; the child's stderr:\n"
+                           f"{child_err[-3000:]}")
+    return {"uninterrupted": launches_clean, "resumed": launches_resumed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2442,11 +3062,12 @@ def main() -> int:
     launches_by_path.update(phase_stream_launches)
     launches_by_path["glm_driver"], driver_timing, (
         (launches_by_path["glm_driver_ooc"], ooc_timing),
-        mp_driver_launches) = phase_driver(
+        mp_driver_launches, recovery_driver_launches) = phase_driver(
         dev, smi, peaks, gen,
         then=lambda root, train_dir, val_dir: (
             phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks),
-            phase_mp_driver(train_dir, val_dir, root, dev, smi)))
+            phase_mp_driver(train_dir, val_dir, root, dev, smi),
+            phase_recovery_driver(train_dir, val_dir, root, dev, smi)))
     path_launches, path_timing = phase_path(obj, batch, csc, smi, gen, dev,
                                             peaks)
     launches_by_path.update(path_launches)
@@ -2476,6 +3097,14 @@ def main() -> int:
     }
     print(f"phase 17: {time.perf_counter() - t_mp:.2f} s (the driver leg "
           "ran inside phase 9's directory)")
+    # phase 18: recovery
+    t_rec = time.perf_counter()
+    launches_by_path["recovery"] = {
+        "entity_sharded_cd_world2_gloo": phase_recovery(game_ctx, dev, smi),
+        "glm_driver_world1_device_loss_resume": recovery_driver_launches,
+    }
+    print(f"phase 18: {time.perf_counter() - t_rec:.2f} s (leg (b) ran "
+          "inside phase 9's directory)")
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2523,4 +3152,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--mp-rank":
         sys.exit(mp_rank(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--recovery-rank":
+        sys.exit(recovery_rank(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--sticky-error":
+        sys.exit(sticky_error_probe())
     sys.exit(main())

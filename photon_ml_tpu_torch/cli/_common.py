@@ -63,18 +63,25 @@ def start_processes(args, device: str) -> bool:
 
 
 def stop_processes(distributed: bool) -> None:
-    """Leave the runtime :func:`start_processes` joined."""
-    if distributed:
+    """Leave the runtime :func:`start_processes` joined. After a watchdog
+    abandoned a collective the group is out of step and its teardown
+    would wait on that collective, so the process just exits."""
+    from photon_ml_tpu_torch.parallel.resilience import abandoned_world
+
+    if distributed and not abandoned_world():
         torch.distributed.destroy_process_group()
 
 
 def log_path(output_dir: str) -> str:
     """The structured log: ``photon.log.jsonl`` for rank 0 (the lead), one
-    file per other rank beside it, so that ranks never share a file."""
-    from photon_ml_tpu_torch.parallel.multihost import is_lead, process_index
+    file per other rank beside it, so that ranks never share a file. The
+    rank is the resilience transport's: the world's rank in a real run,
+    the simulated process's under ``testing.run_simulated_processes``."""
+    from photon_ml_tpu_torch.parallel.resilience import current_process_index
 
-    name = ("photon.log.jsonl" if is_lead()
-            else f"photon.log.rank-{process_index()}.jsonl")
+    rank = current_process_index()
+    name = ("photon.log.jsonl" if rank == 0
+            else f"photon.log.rank-{rank}.jsonl")
     return os.path.join(output_dir, name)
 
 

@@ -12,8 +12,11 @@ here.
 
 ``--out-of-core`` decodes, scores and writes one block window at a time
 (``io.data_reader.read_training_examples_chunked``): host RAM holds one
-window plus the evaluators' 16 bytes per row. The device-loss exit code
-(75) comes with ROADMAP item 17.
+window plus the evaluators' 16 bytes per row.
+
+Device loss (``utils.is_device_loss``) exits 75: scoring is stateless and
+its output write is atomic, so no marker is needed, and a rerun of the
+same command is a clean retry (the training drivers' contract).
 
 Usage:
     python -m photon_ml_tpu_torch.cli.game_scoring_driver \\
@@ -26,6 +29,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import sys
 from typing import Sequence
 
 import numpy as np
@@ -44,7 +48,9 @@ from photon_ml_tpu_torch.io.paldb import load_index_map
 from photon_ml_tpu_torch.io.schemas import SCORING_RESULT_SCHEMA
 from photon_ml_tpu_torch.models import RandomEffectModel
 from photon_ml_tpu_torch.types import resolve_device
-from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
+from photon_ml_tpu_torch.utils import (
+    PhotonLogger, Timed, is_device_loss, resolve_dtype,
+)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -90,6 +96,17 @@ def _slice_host_sparse(sp, row_slice):
 
 
 def main(argv: Sequence[str] | None = None) -> int:
+    try:
+        return _main(argv)
+    except Exception as e:
+        if not is_device_loss(e):
+            raise
+        print("device lost; rerun this command (scoring is idempotent, no "
+              "partial output was published)", file=sys.stderr)
+        return 75
+
+
+def _main(argv: Sequence[str] | None = None) -> int:
     args = build_arg_parser().parse_args(argv)
     dev = resolve_device(args.device)
     dtype = resolve_dtype(args.dtype)

@@ -32,12 +32,24 @@ process's row span (``--out-of-core-shards``: its
 processes, a streamed summary reduces its moments across processes, and
 only rank 0 writes the models, checkpoints and feature summaries.
 
+``--entity-shards N`` (N must be the process count) partitions every
+random coordinate's entities across the processes by a stable hash, each
+process building and solving only its own, and ``--re-table-budget-mb``
+fails a coordinate whose local table is over budget before any sweep.
+``--max-rank-failures N`` turns on in-job recovery: a committed snapshot
+under ``<output-dir>/recovery`` every ``--recovery-snapshot-every`` sweeps,
+and a coordinated abort rolls the sweep back instead of ending the job
+(``parallel/recovery.py``; a lost rank escalates on the production
+transport, which cannot shrink). Device loss (``utils.is_device_loss``)
+with ``--checkpoint`` writes ``RESUME.json``, pointing at the newest
+checkpoint, and exits 75; the same command with ``--auto-resume`` adopts
+that checkpoint as its warm start. The marker is fingerprinted against the
+inputs and consumed only when a run completes.
+
 Flags of the JAX driver that select parts of the port not written yet
-(entity sharding, recovery, the registry, profiling) are
-accepted by the parser and raise, naming the ROADMAP item that ports them;
-the settings that only refine those parts (``--recovery-snapshot-every``,
-``--trace-sample``) are not accepted. The device-loss exit (resume marker, exit code 75) comes with
-item 17.
+(the registry, profiling) are accepted by the parser and raise, naming the
+ROADMAP item that ports them; the settings that only refine those parts
+(``--trace-sample``) are not accepted.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
@@ -57,7 +69,9 @@ import argparse
 import dataclasses
 import itertools
 import os
-from typing import Dict, List, Sequence
+import re
+import sys
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -84,23 +98,22 @@ from photon_ml_tpu_torch.ops.normalization import (
 from photon_ml_tpu_torch.ops.statistics import (
     summarize_features, summarize_features_streamed,
 )
+from photon_ml_tpu_torch.parallel import resilience
+from photon_ml_tpu_torch.parallel.entity_shard import EntityShardSpec
 from photon_ml_tpu_torch.parallel.multihost import (
-    allreduce_summary_moments, is_lead, process_count, process_index,
+    allreduce_summary_moments, process_count, process_index,
 )
+from photon_ml_tpu_torch.parallel.recovery import RecoveryManager
 from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
-from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
+from photon_ml_tpu_torch.utils import (
+    PhotonLogger, Timed, is_device_loss, resolve_dtype,
+)
 
-_SHARDS = "17 (entity sharding)"
-_RECOVERY = "17 (recovery)"
 _OBSERVABILITY = "20 (observability)"
 # flags of the JAX driver whose code paths are not ported yet, by the
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
-    "entity_shards": _SHARDS,
-    "re_table_budget_mb": _SHARDS,
-    "auto_resume": _RECOVERY,
-    "max_rank_failures": _RECOVERY,
     "publish_to": "19 (serving and lifecycle)",
     "profile_dir": _OBSERVABILITY,
     "trace_dir": _OBSERVABILITY,
@@ -222,11 +235,35 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "device, each started with the same flags")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--entity-shards", type=positive_int, default=None,
+                   help="entity-sharded random-effect training: partition "
+                        "every random coordinate's entities across this "
+                        "many processes by a stable hash of the entity id "
+                        "(must equal the process count: shard i lives on "
+                        "process i); sweeps exchange only changed rows' "
+                        "scores")
+    p.add_argument("--re-table-budget-mb", type=float, default=None,
+                   help="per-process random-effect entity-table budget in "
+                        "MB: a coordinate whose local table exceeds it "
+                        "fails before the first sweep, pointing at "
+                        "--entity-shards")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="with --checkpoint: adopt the newest checkpoint as "
+                        "the warm start when a prior run died on device "
+                        "loss (the RESUME.json marker / exit code 75)")
+    p.add_argument("--max-rank-failures", type=int, default=0,
+                   help="in-job recovery: roll a sweep back to its "
+                        "committed snapshot on a coordinated abort, and "
+                        "tolerate up to this many lost ranks on a "
+                        "transport that can shrink (the production one "
+                        "escalates rank loss to the --auto-resume path); "
+                        "0 keeps plain fail-stop")
+    p.add_argument("--recovery-snapshot-every", type=positive_int,
+                   default=1,
+                   help="commit a recovery snapshot every N CD sweeps "
+                        "(with --max-rank-failures > 0): a failure rolls "
+                        "back at most N sweeps")
     # accepted for parity with the JAX driver; each raises (_DEFERRED)
-    p.add_argument("--entity-shards", type=positive_int, default=None)
-    p.add_argument("--re-table-budget-mb", type=float, default=None)
-    p.add_argument("--auto-resume", action="store_true")
-    p.add_argument("--max-rank-failures", type=int, default=0)
     p.add_argument("--publish-to", default=None)
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--trace-dir", default=None)
@@ -390,7 +427,24 @@ def _run(args) -> int:
 
 
 def _train(args, dev: torch.device, distributed: bool) -> int:
-    lead = is_lead()
+    # the transport's rank: the world's in a real run, the simulated
+    # process's under testing.run_simulated_processes
+    lead = resilience.current_process_index() == 0
+    # entity sharding is checked here, before any data is read: the owner
+    # map puts entity shard i on process i
+    entity_spec = None
+    if args.entity_shards is not None:
+        pc = resilience.current_transport().process_count()
+        if args.entity_shards != pc:
+            raise SystemExit(
+                f"--entity-shards {args.entity_shards} must equal the "
+                f"process count ({pc}): the owner map assigns entity shard "
+                "i to process i (run one process per shard with "
+                "--coordinator-address/--num-processes)")
+        entity_spec = EntityShardSpec(args.entity_shards,
+                                      resilience.current_process_index())
+    re_table_budget = (None if args.re_table_budget_mb is None
+                       else int(args.re_table_budget_mb * 1e6))
     dtype = resolve_dtype(args.dtype)
     task = TASK_TO_LOSS.get(args.task, args.task)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -475,7 +529,11 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
     norm_type = NormalizationType(args.normalization)
     if norm_type != NormalizationType.NONE or args.summarize_features:
         contexts = {}
-        with Timed(logger, "feature_summarization"):
+        # the first collective phase of a multi-process run (the streamed
+        # moments' reduction): one process's read or decode failure aborts
+        # every process instead of leaving them in the reduction
+        with Timed(logger, "feature_summarization"), \
+                resilience.CollectiveGuard("feature_summarization"):
             for shard in shards:
                 if shard in ooc_shards:
                     # one extra streamed pass over the disk-backed shard
@@ -508,14 +566,52 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
 
     warm = (load_game_model(args.warm_start_model, device=dev)
             if args.warm_start_model else None)
+    # the resume marker: written on device loss, kept until a run
+    # completes (a second failure of any kind keeps it), and fingerprinted
+    # against the inputs so a rerun on other data refuses it
+    resume = resilience.ResumeManager(
+        os.path.join(args.output_dir, "RESUME.json"),
+        fingerprint={
+            "train_data": sorted(args.train_data),
+            "validation_data": (sorted(args.validation_data)
+                                if args.validation_data else None),
+            "validation_rows": (None if validation is None
+                                else int(validation.num_samples)),
+        },
+        is_lead=lead)
+    if args.auto_resume and resume.exists():
+        # marker-gated: without one --auto-resume does nothing, so a
+        # supervisor may always pass it
+        resume_from = resume.load().get("checkpoint")
+        if resume_from:
+            warm = load_game_model(resume_from, device=dev)
+            logger.log("auto_resume", checkpoint=resume_from)
+    if args.auto_resume and distributed:
+        # every process has adopted the checkpoint (or seen none) before
+        # any enters training's first collective; unconditional, since
+        # whether the marker exists is a process-local probe
+        resilience.health_barrier("auto_resume_loaded")
+
     evaluators = args.evaluators
     if evaluators is None:
         evaluators = [TASK_DEFAULT_EVALUATOR[task]] if validation is not None else []
+
+    recovery_mgr = None
+    if args.max_rank_failures > 0:
+        # the resume marker's fingerprint: a snapshot from a run on other
+        # inputs refuses to load
+        recovery_mgr = RecoveryManager(
+            os.path.join(args.output_dir, "recovery"),
+            fingerprint=resume.fingerprint,
+            max_rank_failures=args.max_rank_failures,
+            snapshot_every=args.recovery_snapshot_every)
 
     estimator = GameEstimator(
         task=task, n_iterations=args.n_iterations, evaluators=evaluators,
         device=dev, dtype=dtype, cd_tolerance=args.cd_tolerance,
         solver_tol_schedule=args.solver_tol_schedule,
+        entity_shard=entity_spec, entity_table_budget_bytes=re_table_budget,
+        recovery=recovery_mgr,
     )
     ckpt = None
     if args.checkpoint and lead:
@@ -524,17 +620,43 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
                                 f"config-{gi}-iter-{it}")
             save_game_model(model, path, index_maps)
             logger.log("checkpoint", config=gi, iteration=it, path=path)
+    elif args.checkpoint and entity_spec is not None and entity_spec.active:
+        # a sharded checkpoint is a collective (the model build gathers
+        # every shard's buckets): the other ranks join it, the lead writes
+        def ckpt(gi, it, model):
+            del gi, it, model
 
     def log_fit(gi, result):
         for rec in result.history:
             logger.log("cd_iteration", config=gi, **rec)
 
-    with Timed(logger, "training"):
-        results = estimator.fit(
-            train, validation, config_grid=grid, warm_start=warm,
-            locked=args.locked_coordinates, checkpoint_callback=ckpt,
-            fit_callback=log_fit,
-        )
+    # device loss cannot be recovered in-process (a sticky CUDA error
+    # poisons the context), so it is a process boundary: a marker pointing
+    # at the newest checkpoint and exit 75 (EX_TEMPFAIL); a supervisor
+    # reruns the same command with --auto-resume
+    try:
+        with Timed(logger, "training"):
+            results = estimator.fit(
+                train, validation, config_grid=grid, warm_start=warm,
+                locked=args.locked_coordinates, checkpoint_callback=ckpt,
+                fit_callback=log_fit,
+            )
+    except Exception as e:
+        if not is_device_loss(e) or not args.checkpoint:
+            raise
+        latest = _latest_checkpoint(args.output_dir)
+        resume.save({"error": str(e).split("\n")[0], "checkpoint": latest})
+        logger.log("device_lost", error=str(e).split("\n")[0],
+                   resume_checkpoint=latest)
+        logger.close()
+        print(f"device lost; resume marker written to {resume.path} "
+              "(rerun with --auto-resume)", file=sys.stderr)
+        return 75
+
+    if recovery_mgr is not None and recovery_mgr.stats["recoveries"]:
+        # the run survived an in-job recovery: the supervisor never saw a
+        # restart, so the run log is the only durable trace of it
+        logger.log("in_job_recovery", **recovery_mgr.as_dict())
 
     if args.tuning_mode != "none":
         from photon_ml_tpu_torch.tuning import tune_game
@@ -567,11 +689,40 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
                     r.model,
                     os.path.join(args.output_dir, "all", f"config-{gi}"),
                     index_maps)
+    # outputs are published: ANY completed run consumes the marker, so a
+    # later --auto-resume cannot warm-start from an older checkpoint
+    resume.consume()
     logger.log("driver_done",
                best_config=[config_asdict(c) for c in best.configs],
                best_metrics=None if best.evaluation is None else best.evaluation.metrics)
     logger.close()
     return 0
+
+
+def _latest_checkpoint(output_dir: str) -> Optional[str]:
+    """The newest checkpoint directory, or None: by mtime, ties (coarse
+    mtimes) broken on the parsed config and iteration numbers, so that
+    iter-10 ranks above iter-9. A complete ``{name}.old-{pid}`` copy left
+    by a save that died between its two renames counts as its base name
+    when the base is missing."""
+    root = os.path.join(output_dir, "checkpoints")
+    if not os.path.isdir(root):
+        return None
+
+    def nums(name):
+        return tuple(int(x) for x in re.findall(r"\d+", name)) or (-1,)
+
+    entries = [d for d in sorted(os.listdir(root))
+               if os.path.isdir(os.path.join(root, d))]
+    live = [d for d in entries if ".tmp-" not in d and ".old-" not in d]
+    for d in entries:
+        if ".old-" in d and d.split(".old-")[0] not in live:
+            live.append(d)
+    if not live:
+        return None
+    best = max(live, key=lambda d: (os.path.getmtime(os.path.join(root, d)),
+                                    nums(d)))
+    return os.path.join(root, best)
 
 
 def config_asdict(cfg: CoordinateConfig) -> dict:

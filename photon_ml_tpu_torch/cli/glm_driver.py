@@ -38,10 +38,21 @@ processes. Every process reaches the same models; only rank 0 writes
 them (and the diagnostics and feature summary), and each other rank logs
 to its own ``photon.log.rank-I.jsonl``.
 
+Device loss (``utils.is_device_loss``: a sticky CUDA error, on any
+process) during the grid or after it persists every finished lambda to
+``RESUME_GLM.npz`` in the output directory and exits 75; the same command
+with ``--auto-resume`` replays them (the path solver is seeded with their
+solutions, nothing is re-solved) and trains the rest. The marker is
+fingerprinted against the train and validation inputs, so a changed rerun
+refuses it, and it is consumed only when the grid completes.
+``--max-rank-failures N`` retries a lambda whose fit died in a transient
+coordinated abort (every rank alive) up to N times
+(``parallel.recovery.retry_collective``).
+
 Flags of the JAX driver that select parts of the port not written yet
-(recovery, profiling) are accepted by the parser and raise,
-naming the ROADMAP item that ports them; the settings that only refine
-those parts are not accepted.
+(profiling) are accepted by the parser and raise, naming the ROADMAP item
+that ports them; the settings that only refine those parts are not
+accepted.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.glm_driver \\
@@ -55,6 +66,8 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -62,8 +75,8 @@ import torch
 
 from photon_ml_tpu_torch import diagnostics
 from photon_ml_tpu_torch.cli._common import (
-    log_path, runtime_info, start_processes, stop_processes, tol_schedule,
-    write_feature_summary,
+    log_path, positive_int, runtime_info, start_processes, stop_processes,
+    tol_schedule, write_feature_summary,
 )
 from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
@@ -94,6 +107,7 @@ from photon_ml_tpu_torch.optimize import (
     OptimizerConfig, PathConfig,
 )
 from photon_ml_tpu_torch.optimize.path import PathSolver
+from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.parallel.data_parallel import (
     build_csc, distributed_coefficient_variances, fit_shard,
     resolve_sparse_grad,
@@ -104,20 +118,22 @@ from photon_ml_tpu_torch.parallel.mesh import (
 from photon_ml_tpu_torch.parallel.multihost import (
     is_lead, process_count, process_index, process_span,
 )
+from photon_ml_tpu_torch.parallel.recovery import retry_collective
+from photon_ml_tpu_torch.parallel.resilience import ResumeManager
 from photon_ml_tpu_torch.parallel.streaming import (
     fit_streaming, make_host_chunks, streaming_coefficient_variances,
 )
 from photon_ml_tpu_torch.types import (
     LabeledBatch, SparseFeatures, make_batch, resolve_device,
 )
-from photon_ml_tpu_torch.utils import PhotonLogger, Timed, resolve_dtype
+from photon_ml_tpu_torch.utils import (
+    PhotonLogger, Timed, is_device_loss, resolve_dtype,
+)
 
 # flags of the JAX driver whose code paths are not ported yet, by the
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
-    "auto_resume": "17 (recovery)",
-    "max_rank_failures": "17 (recovery)",
     "profile_dir": "20 (observability)",
     "trace_dir": "20 (observability)",
 }
@@ -219,9 +235,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "device, each started with the same flags")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--auto-resume", action="store_true",
+                   help="resume a lambda grid that died on device loss "
+                        "(RESUME_GLM.npz marker / exit code 75)")
+    p.add_argument("--max-rank-failures", type=int, default=0,
+                   help="in-job recovery: retry a lambda fit that died in "
+                        "a transient coordinated abort (every rank alive, "
+                        "a generic local error) up to this many times, "
+                        "with jittered backoff and a re-aligning barrier; "
+                        "rank loss, device loss and data errors escalate "
+                        "to the --auto-resume whole-job path")
+    p.add_argument("--recovery-snapshot-every", type=positive_int,
+                   default=1,
+                   help="accepted for parity with the GAME training "
+                        "driver: the grid's recovery unit is one lambda "
+                        "(each finished lambda is persisted to the resume "
+                        "marker), so there is no finer unit to select")
     # accepted for parity with the JAX driver; each raises (_DEFERRED)
-    p.add_argument("--auto-resume", action="store_true")
-    p.add_argument("--max-rank-failures", type=int, default=0)
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--trace-dir", default=None)
     return p
@@ -480,6 +510,75 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
         evaluators = [TASK_DEFAULT_EVALUATOR[task]] if validation is not None else []
 
     # -- stage: train over the lambda grid with warm start -------------------
+    # lambda-granular device-loss recovery: every finished lambda's host
+    # result is persisted on device loss, and a rerun with --auto-resume
+    # replays them and resumes the warm-start chain at the first unfinished
+    # lambda. The marker is kept until the grid completes and is
+    # fingerprinted against the inputs: restored metrics were computed on
+    # the crashed run's validation set, so a rerun on other data refuses
+    resume = ResumeManager(
+        os.path.join(args.output_dir, "RESUME_GLM.npz"),
+        fingerprint={
+            "train_data": sorted(args.train_data),
+            "validation_data": (sorted(args.validation_data)
+                                if args.validation_data else None),
+            "validation_rows": (None if validation is None
+                                else int(vlabels.shape[0])),
+            # a resumed path must re-screen the tail as the crashed run
+            # would have
+            "path_screen": args.path_screen,
+        },
+        is_lead=lead)
+    results = []
+    # the marker's host copy of each finished lambda, taken when it
+    # finishes: after a sticky CUDA error every later read from the card
+    # fails, so the device-loss path must not touch it
+    entries = []
+    w = torch.zeros((dim,), dtype=dtype, device=dev)
+    if args.auto_resume and resume.exists():
+        # the driver's own compatibility checks first (their messages name
+        # the mismatch), then the input fingerprint
+        saved = resume.load(verify=False)
+        saved_lams = [e["lam"] for e in saved["entries"]]
+        if saved_lams != list(args.reg_weights[: len(saved_lams)]):
+            raise ValueError(
+                f"RESUME_GLM.npz holds lambdas {saved_lams} which are not a "
+                f"prefix of --reg-weights {list(args.reg_weights)}; refusing "
+                "to mix grids: rerun with the original grid or delete the "
+                "marker")
+        if validation is not None and evaluators and any(
+                evaluators[0] not in (e["metrics"] or {})
+                for e in saved["entries"]):
+            raise ValueError(
+                "RESUME_GLM.npz entries lack the current evaluator "
+                f"{evaluators[0]!r} (the crashed run had different "
+                "validation settings); rerun with the original settings or "
+                "delete the marker")
+        resume.verify(saved)  # refuse changed train/validation inputs
+        for e in saved["entries"]:
+            res_like = SimpleNamespace(**e["res"])
+            res_like.w = torch.as_tensor(res_like.w, device=dev).to(dtype)
+            variances = (None if e["variances"] is None else torch.as_tensor(
+                e["variances"], device=dev).to(dtype))
+            results.append((e["lam"], res_like, e["metrics"], variances))
+            entries.append(e)
+        w = torch.as_tensor(saved["last_w"], device=dev).to(dtype)
+        logger.log("auto_resume", completed_lambdas=len(results))
+
+    def device_lost(err, **where) -> int:
+        resume.save({
+            "entries": entries,
+            "last_w": (entries[-1]["res"]["w"] if entries
+                       else np.zeros((dim,))),
+            "error": str(err).split("\n")[0],
+        })
+        logger.log("device_lost", error=str(err).split("\n")[0],
+                   completed_lambdas=len(results), **where)
+        logger.close()
+        print(f"device lost; {len(results)} finished lambdas persisted to "
+              f"{resume.path} (rerun with --auto-resume)", file=sys.stderr)
+        return 75
+
     # the column sort behind the csc gradient paths is paid once for the
     # whole lambda grid, not per fit
     grid_csc = None
@@ -507,153 +606,210 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
                 objective, reg, batch=batch, optimizer=optimizer,
                 config=opt_config, path_config=pcfg,
                 precomputed_csc=grid_csc, mesh=mesh)
+        # a resumed path is seeded with the replayed solutions (gradients
+        # recomputed on first use), so the resumed tail screens as the
+        # uninterrupted run would
+        for lam_done, res_done, _m, _v in results:
+            path_solver.seed_state(lam_done, res_done.w)
 
-    results = []
-    w = torch.zeros((dim,), dtype=dtype, device=dev)
-    with Timed(logger, "training"):
-        for li, lam in enumerate(args.reg_weights):
-            run_config = opt_config
-            if args.solver_tol_schedule is not None:
-                run_config = dataclasses.replace(
-                    opt_config,
-                    tolerance=args.solver_tol_schedule.at(li, args.tolerance))
-            path_stats = None
-            if path_solver is not None:
-                res, path_stats = path_solver.solve(
-                    lam, tolerance=run_config.tolerance)
-            elif streaming:
-                res = fit_streaming(
-                    objective, chunks, dim, w0=w,
-                    l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
-                    optimizer=optimizer, config=run_config, dtype=dtype,
-                    prefetch_depth=args.prefetch_depth, device=dev)
-            else:
-                res = fit_shard(
-                    objective, fit_batch, w,
-                    l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
-                    optimizer=optimizer, config=run_config,
-                    precomputed_csc=grid_csc, mesh=mesh,
-                )
-            w = res.w  # warm start the next lambda
-            diag = {
-                "reg_weight": lam,
-                "solver_tolerance": float(
-                    run_config.tolerance if res.solver_tolerance is None
-                    else res.solver_tolerance),
-                "screened_dim": int(
-                    dim if res.screened_dim is None else res.screened_dim),
-                "loss": float(res.value),
-                "grad_norm": float(res.grad_norm),
-                "iterations": int(res.iterations),
-                "converged": bool(res.converged),
-                "loss_history": [
-                    float(v) for v in res.loss_history.cpu().numpy()
-                    if np.isfinite(v)
-                ],
-            }
-            if res.stream_stats is not None:
-                # this lambda's decode-wait / transfer / compute-stall
-                # seconds over its whole pass sequence
-                diag["stream"] = res.stream_stats
-            if path_stats is not None:
-                diag["path"] = path_stats.as_dict()
-            metrics = {}
-            if validation_batch is not None and evaluators:
-                scores = objective.margins(res.w, validation_batch).cpu().numpy()
-                for name in evaluators:
-                    metrics[name] = get_evaluator(name).evaluate(
-                        scores, vlabels, vweights
+    try:
+        with Timed(logger, "training"):
+            for li in range(len(results), len(args.reg_weights)):
+                lam = args.reg_weights[li]
+                # per-lambda injection point: kill-and-rerun tests drive
+                # the device-loss resume path through here
+                fault_injection.check("glm.lambda")
+                run_config = opt_config
+                if args.solver_tol_schedule is not None:
+                    run_config = dataclasses.replace(
+                        opt_config,
+                        tolerance=args.solver_tol_schedule.at(
+                            li, args.tolerance))
+                path_stats = [None]
+
+                def fit_lambda(lam=lam, run_config=run_config):
+                    if path_solver is not None:
+                        res_, path_stats[0] = path_solver.solve(
+                            lam, tolerance=run_config.tolerance)
+                        return res_
+                    if streaming:
+                        return fit_streaming(
+                            objective, chunks, dim, w0=w,
+                            l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
+                            optimizer=optimizer, config=run_config,
+                            dtype=dtype, prefetch_depth=args.prefetch_depth,
+                            device=dev)
+                    return fit_shard(
+                        objective, fit_batch, w,
+                        l2=reg.l2_weight(lam), l1=reg.l1_weight(lam),
+                        optimizer=optimizer, config=run_config,
+                        precomputed_csc=grid_csc, mesh=mesh,
                     )
-                diag["metrics"] = metrics
-            variances = None
-            if args.compute_variances:
-                if streaming:
-                    variances = streaming_coefficient_variances(
-                        objective, chunks, dim, res.w,
-                        l2=reg.l2_weight(lam), dtype=dtype,
-                        prefetch_depth=args.prefetch_depth, device=dev)
+
+                if args.max_rank_failures > 0:
+                    # a transient coordinated abort (every rank alive)
+                    # re-runs this lambda from the same warm start; anything
+                    # else reaches the device-loss handling below
+                    res = retry_collective(
+                        fit_lambda, max_retries=args.max_rank_failures,
+                        tag=f"glm.lambda_retry:{li}")
                 else:
-                    variances = distributed_coefficient_variances(
-                        objective, mesh=mesh)(res.w, fit_batch,
-                                              reg.l2_weight(lam))
-            results.append((lam, res, metrics, variances))
-            logger.log("lambda_trained", **diag)
+                    res = fit_lambda()
+                # every fit records the tolerance it solved to and the width
+                # it solved over, so the lambda log and the resume marker
+                # always carry both
+                if res.solver_tolerance is None:
+                    res = res._replace(
+                        solver_tolerance=float(run_config.tolerance))
+                if res.screened_dim is None:
+                    res = res._replace(screened_dim=int(dim))
+                w = res.w  # warm start the next lambda
+                loss_history = res.loss_history.cpu().numpy()
+                diag = {
+                    "reg_weight": lam,
+                    "solver_tolerance": float(res.solver_tolerance),
+                    "screened_dim": int(res.screened_dim),
+                    "loss": float(res.value),
+                    "grad_norm": float(res.grad_norm),
+                    "iterations": int(res.iterations),
+                    "converged": bool(res.converged),
+                    "loss_history": [
+                        float(v) for v in loss_history if np.isfinite(v)
+                    ],
+                }
+                if res.stream_stats is not None:
+                    # this lambda's decode-wait / transfer / compute-stall
+                    # seconds over its whole pass sequence
+                    diag["stream"] = res.stream_stats
+                if path_stats[0] is not None:
+                    diag["path"] = path_stats[0].as_dict()
+                metrics = {}
+                if validation_batch is not None and evaluators:
+                    scores = objective.margins(
+                        res.w, validation_batch).cpu().numpy()
+                    for name in evaluators:
+                        metrics[name] = get_evaluator(name).evaluate(
+                            scores, vlabels, vweights
+                        )
+                    diag["metrics"] = metrics
+                variances = None
+                if args.compute_variances:
+                    if streaming:
+                        variances = streaming_coefficient_variances(
+                            objective, chunks, dim, res.w,
+                            l2=reg.l2_weight(lam), dtype=dtype,
+                            prefetch_depth=args.prefetch_depth, device=dev)
+                    else:
+                        variances = distributed_coefficient_variances(
+                            objective, mesh=mesh)(res.w, fit_batch,
+                                                  reg.l2_weight(lam))
+                results.append((lam, res, metrics, variances))
+                entries.append({
+                    "lam": lam,
+                    # the native dtype: a resumed float64 run must
+                    # reproduce the uninterrupted one
+                    "res": {"w": res.w.cpu().numpy(),
+                            "value": float(res.value),
+                            "grad_norm": float(res.grad_norm),
+                            "iterations": int(res.iterations),
+                            "converged": bool(res.converged),
+                            "solver_tolerance": res.solver_tolerance,
+                            "screened_dim": res.screened_dim,
+                            "loss_history": loss_history},
+                    "metrics": metrics,
+                    "variances": (None if variances is None
+                                  else variances.cpu().numpy()),
+                })
+                logger.log("lambda_trained", **diag)
+    except Exception as e:
+        if not is_device_loss(e):
+            raise
+        return device_lost(e)
 
-    # -- stage: validate + select best ---------------------------------------
-    best_i = 0
-    if validation is not None and evaluators:
-        ev = get_evaluator(evaluators[0])
-        for i in range(1, len(results)):
-            if ev.better(results[i][2][evaluators[0]],
-                         results[best_i][2][evaluators[0]]):
-                best_i = i
+    try:
+        # -- stage: validate + select best -----------------------------------
+        best_i = 0
+        if validation is not None and evaluators:
+            ev = get_evaluator(evaluators[0])
+            for i in range(1, len(results)):
+                if ev.better(results[i][2][evaluators[0]],
+                             results[best_i][2][evaluators[0]]):
+                    best_i = i
 
-    if args.diagnostics and lead:
-        lam_best, res_best, _, _ = results[best_i]
-        report = {"reg_weight": lam_best}
-        inverse = index_map.inverse()
-        summary_std = None
-        if norm_type != NormalizationType.NONE or args.summarize_features:
-            summary_std = np.zeros(dim)
-            summary_std[:summary.dim] = summary.std
-        imp = diagnostics.feature_importance(res_best.w.cpu().numpy(),
-                                             summary_std, top_k=50)
-        report["feature_importance"] = [
-            {"feature": inverse.get(int(i), str(int(i))),
-             "score": float(s)}
-            for i, s in zip(imp["index"], imp["score"])
-        ]
-        if validation_batch is not None and task in ("logistic",
-                                                     "smoothed_hinge"):
-            probs = objective.loss.mean(
-                objective.margins(res_best.w, validation_batch)
-            ).cpu().numpy()
-            report["hosmer_lemeshow"] = diagnostics.hosmer_lemeshow(
-                probs, vlabels)
-        if args.bootstrap_replicates > 0 and not streaming:
-            with Timed(logger, "bootstrap"):
-                boot_batch = (batch if not distributed else _device_batch(
-                    host_feats, labels, offsets, weights, dtype, dev))
-                boot = diagnostics.bootstrap_coefficients(
-                    objective, boot_batch, res_best.w,
-                    l2=reg.l2_weight(lam_best),
-                    n_replicates=args.bootstrap_replicates,
-                )
-            report["bootstrap"] = {
-                "replicates": args.bootstrap_replicates,
-                "std": boot["std"].tolist(),
-                "lower": boot["lower"].tolist(),
-                "upper": boot["upper"].tolist(),
-            }
-        with open(os.path.join(args.output_dir, "diagnostics.json"), "w") as f:
-            json.dump(report, f, indent=2)
-        logger.log("diagnostics_written",
-                   hosmer_lemeshow=report.get("hosmer_lemeshow"))
-
-    # -- stage: model output -------------------------------------------------
-    # every process reaches the same models; only the lead writes them
-    with Timed(logger, "save_models"):
-        for i, (lam, res, metrics, variances) in enumerate(
-                results if lead else ()):
-            model = GameModel(
-                {"global": FixedEffectModel(
-                    GeneralizedLinearModel(
-                        Coefficients(res.w, variances), task=task
+        if args.diagnostics and lead:
+            lam_best, res_best, _, _ = results[best_i]
+            report = {"reg_weight": lam_best}
+            inverse = index_map.inverse()
+            summary_std = None
+            if norm_type != NormalizationType.NONE or args.summarize_features:
+                summary_std = np.zeros(dim)
+                summary_std[:summary.dim] = summary.std
+            imp = diagnostics.feature_importance(res_best.w.cpu().numpy(),
+                                                 summary_std, top_k=50)
+            report["feature_importance"] = [
+                {"feature": inverse.get(int(i), str(int(i))),
+                 "score": float(s)}
+                for i, s in zip(imp["index"], imp["score"])
+            ]
+            if validation_batch is not None and task in ("logistic",
+                                                         "smoothed_hinge"):
+                probs = objective.loss.mean(
+                    objective.margins(res_best.w, validation_batch)
+                ).cpu().numpy()
+                report["hosmer_lemeshow"] = diagnostics.hosmer_lemeshow(
+                    probs, vlabels)
+            if args.bootstrap_replicates > 0 and not streaming:
+                with Timed(logger, "bootstrap"):
+                    boot_batch = (batch if not distributed
+                                  else _device_batch(host_feats, labels,
+                                                     offsets, weights, dtype,
+                                                     dev))
+                    boot = diagnostics.bootstrap_coefficients(
+                        objective, boot_batch, res_best.w,
+                        l2=reg.l2_weight(lam_best),
+                        n_replicates=args.bootstrap_replicates,
                     )
-                )},
-                task=task,
-            )
-            out = os.path.join(
-                args.output_dir,
-                "best" if i == best_i else os.path.join("all", f"lambda-{lam:g}"),
-            )
-            save_game_model(model, out, index_map)
-            if i == best_i and len(results) > 1:
-                save_game_model(
-                    model, os.path.join(args.output_dir, "all", f"lambda-{lam:g}"),
-                    index_map,
-                )
+                report["bootstrap"] = {
+                    "replicates": args.bootstrap_replicates,
+                    "std": boot["std"].tolist(),
+                    "lower": boot["lower"].tolist(),
+                    "upper": boot["upper"].tolist(),
+                }
+            with open(os.path.join(args.output_dir, "diagnostics.json"),
+                      "w") as f:
+                json.dump(report, f, indent=2)
+            logger.log("diagnostics_written",
+                       hosmer_lemeshow=report.get("hosmer_lemeshow"))
 
+        # -- stage: model output --------------------------------------------
+        # every process reaches the same models; only the lead writes them
+        with Timed(logger, "save_models"):
+            for i, (lam, res, metrics, variances) in enumerate(
+                    results if lead else ()):
+                model = GameModel(
+                    {"global": FixedEffectModel(
+                        GeneralizedLinearModel(
+                            Coefficients(res.w, variances), task=task
+                        )
+                    )},
+                    task=task,
+                )
+                every = os.path.join("all", f"lambda-{lam:g}")
+                out = os.path.join(args.output_dir,
+                                   "best" if i == best_i else every)
+                save_game_model(model, out, index_map)
+                if i == best_i and len(results) > 1:
+                    save_game_model(
+                        model, os.path.join(args.output_dir, every),
+                        index_map)
+    except Exception as e:
+        if not is_device_loss(e):
+            raise
+        return device_lost(e, stage="post_grid")
+
+    # outputs are published: ANY completed grid consumes the marker, so a
+    # later --auto-resume cannot replay stale results
+    resume.consume()
     logger.log("driver_done", best_reg_weight=results[best_i][0],
                best_metrics=results[best_i][2] or None)
     logger.close()

@@ -192,11 +192,12 @@ class GameEstimator:
         self.evaluator_names = list(evaluators)
         self.mesh = mesh
         self.device = _device(device, mesh)
-        # not ported yet: CoordinateDescent raises, naming the ROADMAP item
-        self._deferred = dict(
-            entity_shard=entity_shard,
-            entity_table_budget_bytes=entity_table_budget_bytes,
-            recovery=recovery)
+        # entity-sharded training, its per-process table budget and in-job
+        # recovery, passed straight to CoordinateDescent (one
+        # RecoveryManager serves the whole grid: its budgets are per job)
+        self.entity_shard = entity_shard
+        self.entity_table_budget_bytes = entity_table_budget_bytes
+        self.recovery = recovery
         self.dtype = dtype
         self.verbose = verbose
         # sweep-level early exit and inexact inner-solve schedule, passed
@@ -233,7 +234,10 @@ class GameEstimator:
                 verbose=self.verbose, dataset_cache=dataset_cache,
                 cd_tolerance=self.cd_tolerance,
                 solver_tol_schedule=self.solver_tol_schedule,
-                device=self.device, mesh=self.mesh, **self._deferred)
+                device=self.device, mesh=self.mesh,
+                entity_shard=self.entity_shard,
+                entity_table_budget_bytes=self.entity_table_budget_bytes,
+                recovery=self.recovery)
             ckpt = None
             if checkpoint_callback is not None:
                 def ckpt(it, model, gi=gi):

@@ -42,8 +42,23 @@ With a mesh (``parallel.mesh.make_mesh``), one process per device:
   ``AvroChunkSource(process_part=)`` share) and its partials sum across
   processes, as in the reference.
 
-Not ported yet, each raising and naming its ROADMAP item: entity sharding
-by ``EntityShardSpec``, the entity table budget and in-job recovery (17).
+Entity sharding (``entity_shard``, a ``parallel.entity_shard.
+EntityShardSpec``), as in the reference: each process builds and solves
+only the random-effect entities it owns, and every sweep publishes only
+the rows whose score bitwise changed (the delta-only exchange). The full
+tables cross the wire only at save points (``allgather_objects``), so
+checkpoints and saved models keep the single-file layout.
+``entity_table_budget_bytes`` fails a coordinate whose local table is
+over it before the first sweep. Every coordinate step runs inside a
+``resilience.CollectiveGuard`` (with the ``cd.step`` fault site), so one
+process's failure raises ``PeerFailure`` on every process; with
+``recovery`` (a ``parallel.recovery.RecoveryManager``) each sweep starts
+with a committed snapshot and a ``PeerFailure`` rolls the run back to it
+(or, on a transport that can shrink, redistributes a lost rank's
+entities over the survivors). The exchanges and barriers go through the
+resilience transport, the ``mesh=`` collectives through
+``torch.distributed``: so the same CD runs in simulated processes on the
+CPU and as real ranks on the card.
 """
 
 from __future__ import annotations
@@ -80,15 +95,23 @@ from photon_ml_tpu_torch.ops.regularization import (
 )
 from photon_ml_tpu_torch.optimize import OptimizerConfig, get_optimizer
 from photon_ml_tpu_torch.io.stream_source import ScalarOverlaySource
+from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.parallel.data_parallel import (
     distributed_coefficient_variances, distributed_hvp, distributed_value,
     distributed_value_and_grad, make_csc_path, resolve_sparse_grad,
+)
+from photon_ml_tpu_torch.parallel.entity_shard import (
+    EntityShardSpec, ShardCommStats, allgather_objects, check_table_budget,
+    exchange_score_updates,
 )
 from photon_ml_tpu_torch.parallel.mesh import (
     axis_size, mesh_device, pad_rows, shard_rows,
 )
 from photon_ml_tpu_torch.parallel.multihost import (
     allgather_spans, allgather_varspans, process_count, process_span,
+)
+from photon_ml_tpu_torch.parallel.resilience import (
+    CollectiveGuard, PeerFailure, health_barrier,
 )
 from photon_ml_tpu_torch.parallel.streaming import (
     PinnedRing, fit_streaming, iter_device_chunks, make_host_chunks,
@@ -103,9 +126,23 @@ _log = logging.getLogger(__name__)
 _CSC_MODES = ("csc", "csc_kernel", "csc_precise", "csc_segment")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what}: not ported yet, ROADMAP Queue 1 "
-                               f"item {item}")
+def _changed_rows(new_np: np.ndarray, old_np: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """This shard's bitwise-changed rows and their new values: the
+    published delta."""
+    rows = np.flatnonzero(new_np != old_np).astype(np.int32)
+    return rows, new_np[rows]
+
+
+def _scatter_rows(prev_np: np.ndarray, row_parts: Sequence[np.ndarray],
+                  val_parts: Sequence[np.ndarray]) -> np.ndarray:
+    """Scatter every shard's published rows (disjoint by entity
+    ownership) into a copy of the previous global vector."""
+    out = np.array(prev_np, copy=True)
+    rows = np.concatenate(list(row_parts))
+    if len(rows):
+        out[rows] = np.concatenate(list(val_parts))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -578,11 +615,15 @@ class _FixedState:
         """This coordinate's margins over every training row; streamed, in
         one pass over the chunks' features (no device copy of the shard).
         Each data rank (each process, streamed) scores its own rows, and
-        the blocks are gathered in rank order."""
+        the blocks are gathered in rank order. The gather is a collective
+        boundary reachable outside the sweep's guard (warm start), so a
+        health barrier (with the ``cd.score_gather`` fault site) precedes
+        it: a peer whose pass failed aborts every process here."""
         if not self.streaming:
             local = _margins(self.full_features, w_model)
             if self.mesh is None:
                 return local
+            _score_gather_barrier()
             return _gather_rows(local, self.n_all, self.mesh)
         w_model = w_model.to(self.dtype)
 
@@ -600,6 +641,7 @@ class _FixedState:
         local = torch.cat(outs)[: s1 - s0]
         if process_count() == 1:
             return local
+        _score_gather_barrier()
         # host gathers of the span margins, in global row order
         local = local.cpu().numpy()
         whole = (allgather_spans(local, self.n_all) if self._ooc is None
@@ -613,14 +655,24 @@ class _FixedState:
         return self.w
 
 
+def _score_gather_barrier() -> None:
+    fault_injection.check("cd.score_gather")
+    health_barrier("cd.score_gather")
+
+
 class _RandomState:
     def __init__(self, cfg: CoordinateConfig, data: GameDataset,
-                 cache: Optional[dict] = None):
+                 cache: Optional[dict] = None,
+                 entity_shard: Optional[EntityShardSpec] = None,
+                 table_budget_bytes: Optional[int] = None):
         sp = data.features[cfg.feature_shard]
         ids = data.entity_ids[cfg.entity_column]
+        shard_key = (None if entity_shard is None
+                     else (entity_shard.num_shards, entity_shard.shard_index))
         key = ("re_data", id(data), cfg.name, cfg.feature_shard,
                cfg.entity_column, cfg.num_buckets, cfg.active_cap,
-               cfg.projection, cfg.projection_dim, cfg.projection_seed)
+               cfg.projection, cfg.projection_dim, cfg.projection_seed,
+               shard_key)
         if cache is not None and key in cache:
             # entry[0] pins the keyed dataset alive so its id() cannot be
             # recycled while the cache lives
@@ -633,10 +685,17 @@ class _RandomState:
                 projection=cfg.projection,
                 projection_dim=cfg.projection_dim,
                 projection_seed=cfg.projection_seed,
+                entity_shard=entity_shard,
             )
             self.train_view = build_score_view(self.train_data, sp, ids)
             if cache is not None:
                 cache[key] = (data, self.train_data, self.train_view)
+        # fail before the first sweep when the local entity table is over
+        # the per-process budget (the error points at --entity-shards)
+        check_table_budget(
+            self.train_data.table_bytes(), table_budget_bytes,
+            coordinate=cfg.name,
+            num_shards=1 if entity_shard is None else entity_shard.num_shards)
         self.coeffs: Optional[List[np.ndarray]] = None
         self.variances = None
         # active-set tracking: per-bucket masks of frozen entities (their
@@ -645,6 +704,12 @@ class _RandomState:
         # residual offsets as of each row's entity's last solve: the drift
         # reference for re-activation (length-n host vector)
         self.offs_snap: Optional[np.ndarray] = None
+        # entity-sharded: this shard's OWN score vectors (zeros on unowned
+        # rows); the published delta each sweep is the rows where these
+        # bitwise changed, while the loop's scores[name] stays the
+        # assembled global vector on every process
+        self.local_scores: Optional[torch.Tensor] = None
+        self.local_val_scores: Optional[torch.Tensor] = None
 
 
 class CoordinateDescent:
@@ -653,7 +718,10 @@ class CoordinateDescent:
     device). ``mesh``: a ``parallel.mesh.make_mesh`` mesh whose ``data``
     and ``entity`` axes shard the fixed and random coordinates (module
     docstring); every rank passes the same datasets and ends with the same
-    model."""
+    model. ``entity_shard``, ``entity_table_budget_bytes`` and
+    ``recovery``: entity sharding, its budget and in-job recovery (module
+    docstring); an active ``entity_shard`` excludes a mesh ``entity``
+    axis, which shards the same tables another way."""
 
     def __init__(
         self,
@@ -672,16 +740,6 @@ class CoordinateDescent:
         recovery=None,
         device=None,
     ):
-        if entity_shard is not None:
-            raise _not_ported("CoordinateDescent(entity_shard=...)",
-                              "17 (multi-host and recovery)")
-        if entity_table_budget_bytes is not None:
-            raise _not_ported(
-                "CoordinateDescent(entity_table_budget_bytes=...)",
-                "17 (multi-host and recovery)")
-        if recovery is not None:
-            raise _not_ported("CoordinateDescent(recovery=...)",
-                              "17 (multi-host and recovery)")
         names = [c.name for c in configs]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate coordinate names: {names}")
@@ -711,6 +769,17 @@ class CoordinateDescent:
                              and axis_size(mesh, "entity") > 1 else None)
         self.device = (mesh_device(mesh) if mesh is not None
                        and device is None else resolve_device(device))
+        self.entity_shard = entity_shard
+        self.entity_table_budget_bytes = entity_table_budget_bytes
+        self._sharded = entity_shard is not None and entity_shard.active
+        if self._sharded and self._entity_mesh is not None:
+            raise ValueError(
+                "entity_shard and a mesh 'entity' axis both shard the "
+                "random-effect tables; pass one of them")
+        self._comm = ShardCommStats()
+        # one manager serves every grid point of an estimator fit (run()
+        # calls reset_for_run(); its budgets are job-cumulative)
+        self.recovery = recovery
 
     # -- main loop -------------------------------------------------------
     def run(
@@ -754,9 +823,33 @@ class CoordinateDescent:
         val_n = validation.num_samples if validation is not None else 0
         val_scores = {c.name: torch.zeros(val_n, dtype=dtype, device=dev)
                       for c in self.configs}
+        if self._sharded:
+            for cfg in self.configs:
+                if cfg.coordinate_type == "random":
+                    st = states[cfg.name]
+                    st.local_scores = torch.zeros(n, dtype=dtype, device=dev)
+                    st.local_val_scores = torch.zeros(val_n, dtype=dtype,
+                                                      device=dev)
         if warm_start is not None:
             self._load_warm_start(warm_start, states, scores, val_scores,
                                   train, validation, val_states, val_feats)
+            if self._sharded:
+                # a sharded random coordinate's warm scores are LOCAL
+                # (owned rows only): publish every shard's rows once so the
+                # loop starts from the same global vector everywhere
+                for cfg in self.configs:
+                    if (cfg.coordinate_type != "random"
+                            or warm_start.coordinates.get(cfg.name) is None):
+                        continue
+                    st = states[cfg.name]
+                    has_val = validation is not None and cfg.name in val_states
+                    zeros_v = torch.zeros(val_n, dtype=dtype, device=dev)
+                    scores[cfg.name], val_scores[cfg.name], _, _ = (
+                        self._exchange_scores(
+                            f"warm:{cfg.name}", st, scores[cfg.name],
+                            torch.zeros(n, dtype=dtype, device=dev),
+                            val_scores[cfg.name] if has_val else None,
+                            zeros_v if has_val else val_scores[cfg.name]))
 
         base = torch.as_tensor(train.offsets, device=dev).to(dtype)
         history: List[dict] = []
@@ -790,7 +883,11 @@ class CoordinateDescent:
         eps = float(torch.finfo(dtype).eps)
         stop_reason = "max_iterations"
 
-        for it in range(self.n_iterations):
+        def one_sweep(it: int) -> bool:
+            """One full CD sweep; True when the cd_tolerance early exit
+            fired. A closure so that recovery can re-run a sweep from a
+            restored snapshot."""
+            nonlocal stop_reason
             rt.resync(scores)
             if vt is not None:
                 vt.resync(val_scores)
@@ -808,52 +905,44 @@ class CoordinateDescent:
                             it, cfg.tolerance))
                     record["solver_tolerance"] = run_cfg.tolerance
                 score_delta = 0.0
-                if cfg.name not in locked:
-                    if cfg.coordinate_type == "fixed":
-                        res = st.fit(offs, opt_config=run_cfg)
-                        record.update(
-                            loss=float(res.value),
-                            converged=bool(res.converged),
-                            optimizer_iterations=int(res.iterations))
-                        if res.stream_stats is not None:
-                            # a streamed fixed effect's pass accounting
-                            record["stream"] = res.stream_stats
-                        w_model = st.model_space_w()
-                        new_scores = st.train_scores(w_model)
-                        score_delta = float(torch.max(torch.abs(
-                            new_scores - scores[cfg.name]))) if n else 0.0
-                        rt.replace(scores[cfg.name], new_scores)
-                        scores[cfg.name] = new_scores
-                        if validation is not None:
-                            new_v = _margins(val_feats[cfg.name], w_model)
-                            if vt is not None:
-                                vt.replace(val_scores[cfg.name], new_v)
-                            val_scores[cfg.name] = new_v
-                    else:
-                        score_delta = self._random_step(
-                            cfg, st, it, offs, run_cfg, scores, val_scores,
-                            val_states, rt, vt, n, val_n, validation, eps,
-                            record)
-                record["comm_seconds"] = 0.0
-                record["solve_seconds"] = time.time() - t0
-                t_eval = time.time()
-                if vt is not None:
-                    v_total_host = None
-                    for ev in evaluators:
-                        fn = device_evals.get(ev.name)
-                        if fn is not None:
-                            record[ev.name] = float(
-                                fn(vt.total, val_labels_dev, val_weights_dev))
-                        else:  # grouped without ids / no device form
-                            if v_total_host is None:
-                                v_total_host = vt.total.cpu().numpy()
-                            record[ev.name] = ev.evaluate(
-                                v_total_host, validation.labels,
-                                validation.weights, validation.group_ids)
-                record["eval_seconds"] = time.time() - t_eval
-                record["seconds"] = time.time() - t0
-                record["score_delta"] = score_delta
-                sweep_deltas[cfg.name] = score_delta
+                # a step boundary is a collective phase boundary with more
+                # than one process: the guard turns any process's local
+                # failure inside the step into PeerFailure on every process
+                # instead of leaving the others in the next collective
+                with CollectiveGuard(f"cd:{it}:{cfg.name}"):
+                    fault_injection.check("cd.step")
+                    if cfg.name not in locked:
+                        if cfg.coordinate_type == "fixed":
+                            score_delta = self._fixed_step(
+                                cfg, st, offs, run_cfg, scores, val_scores,
+                                val_feats, rt, vt, n, validation, record)
+                        else:
+                            score_delta = self._random_step(
+                                cfg, st, it, offs, run_cfg, scores,
+                                val_scores, val_states, rt, vt, n, val_n,
+                                validation, eps, record)
+                    record.setdefault("comm_seconds", 0.0)
+                    record["solve_seconds"] = time.time() - t0
+                    t_eval = time.time()
+                    if vt is not None:
+                        v_total_host = None
+                        for ev in evaluators:
+                            fn = device_evals.get(ev.name)
+                            if fn is not None:
+                                record[ev.name] = float(fn(
+                                    vt.total, val_labels_dev,
+                                    val_weights_dev))
+                            else:  # grouped without ids / no device form
+                                if v_total_host is None:
+                                    v_total_host = vt.total.cpu().numpy()
+                                record[ev.name] = ev.evaluate(
+                                    v_total_host, validation.labels,
+                                    validation.weights,
+                                    validation.group_ids)
+                    record["eval_seconds"] = time.time() - t_eval
+                    record["seconds"] = time.time() - t0
+                    record["score_delta"] = score_delta
+                    sweep_deltas[cfg.name] = score_delta
                 _log.log(logging.INFO if self.verbose else logging.DEBUG,
                          "cd.step %s", record)
                 history.append(record)
@@ -870,7 +959,35 @@ class CoordinateDescent:
                          "cd.early_exit after sweep %d: max score delta "
                          "%.3g <= cd_tolerance %.3g", it,
                          max(sweep_deltas.values()), self.cd_tolerance)
-                break
+                return True
+            return False
+
+        recovery = self.recovery
+        if recovery is not None:
+            recovery.reset_for_run()
+        it = 0
+        while it < self.n_iterations:
+            try:
+                if recovery is not None:
+                    # sweep-start commit: the rollback target for a failure
+                    # inside this sweep (its barrier is all-or-nothing, so
+                    # every survivor agrees on the committed sweep)
+                    recovery.commit(it, lambda: self._recovery_payload(
+                        states, scores, val_scores, validation))
+                stop = one_sweep(it)
+                it += 1
+                if stop:
+                    break
+            except PeerFailure as exc:
+                if recovery is None:
+                    raise
+                # re-raises when the failure is fatal, a budget is spent or
+                # nothing was committed; a failure DURING recovery leaves
+                # on_failure or _recovery_restore as a coordinated abort
+                plan = recovery.on_failure(exc)
+                it = self._recovery_restore(
+                    plan, train, validation, states, val_states,
+                    scores, val_scores, history, recovery)
         if history:
             history[-1]["stop_reason"] = stop_reason
 
@@ -888,13 +1005,17 @@ class CoordinateDescent:
 
     # -- helpers ---------------------------------------------------------
     def _build_random_states(self, train, validation, states, val_states):
-        """Build every random coordinate's ``_RandomState`` and its
-        validation score view."""
+        """(Re)build every random coordinate's ``_RandomState`` and its
+        validation score view against the CURRENT ``self.entity_shard``:
+        at run() entry, and again by recovery after a shrink (the cache
+        keys carry the shard spec, so a new owner map rebuilds)."""
         for cfg in self.configs:
             if cfg.coordinate_type != "random":
                 continue
-            states[cfg.name] = _RandomState(cfg, train,
-                                            cache=self.dataset_cache)
+            states[cfg.name] = _RandomState(
+                cfg, train, cache=self.dataset_cache,
+                entity_shard=self.entity_shard,
+                table_budget_bytes=self.entity_table_budget_bytes)
             if validation is not None:
                 st: _RandomState = states[cfg.name]
                 key = ("val_view", id(validation), id(st.train_data))
@@ -910,17 +1031,49 @@ class CoordinateDescent:
                         cache[key] = (validation, st.train_data,
                                       val_states[cfg.name])
 
+    def _fixed_step(self, cfg, st, offs, run_cfg, scores, val_scores,
+                    val_feats, rt, vt, n, validation, record) -> float:
+        """One fixed-effect coordinate step: fit, rescore, update the
+        residual totals. Returns the coordinate's score delta."""
+        res = st.fit(offs, opt_config=run_cfg)
+        record.update(loss=float(res.value), converged=bool(res.converged),
+                      optimizer_iterations=int(res.iterations))
+        if res.stream_stats is not None:
+            # a streamed fixed effect's pass accounting
+            record["stream"] = res.stream_stats
+        w_model = st.model_space_w()
+        new_scores = st.train_scores(w_model)
+        delta = float(torch.max(torch.abs(
+            new_scores - scores[cfg.name]))) if n else 0.0
+        rt.replace(scores[cfg.name], new_scores)
+        scores[cfg.name] = new_scores
+        if validation is not None:
+            new_v = _margins(val_feats[cfg.name], w_model)
+            if vt is not None:
+                vt.replace(val_scores[cfg.name], new_v)
+            val_scores[cfg.name] = new_v
+        return delta
+
     def _random_step(self, cfg, st, it, offs, run_cfg, scores, val_scores,
                      val_states, rt, vt, n, val_n, validation, eps,
                      record) -> float:
         """One random-effect coordinate step with active-set freezing and
-        incremental rescoring. Returns the coordinate's score delta."""
+        incremental rescoring. Returns the coordinate's score delta.
+
+        Entity-sharded: the solve and rescore run over this shard's owned
+        entities only, then the step publishes the rows whose local score
+        bitwise changed and scatters every shard's rows into the global
+        vector (:meth:`_exchange_scores`). The exchange runs EVERY sweep,
+        with an empty payload too, so the collective sequence is the same
+        on every process whatever each shard's active set."""
         dev = self.device
+        sharded = self._sharded
         refresh = (st.coeffs is None or st.frozen is None
                    or st.offs_snap is None or not cfg.active_set
                    or it % cfg.refresh_every == 0)
         active = None
         offs_np = None
+        solve = True
         if not refresh:
             offs_np = offs.cpu().numpy()
             tol = cfg.active_tol if cfg.active_tol is not None else 0.0
@@ -930,64 +1083,130 @@ class CoordinateDescent:
             active = _drift_active_masks(st.train_data.buckets, st.frozen,
                                          offs_np, st.offs_snap, tol)
             if sum(int(a.sum()) for a in active) == 0:
-                # every entity frozen with stationary offsets: solve and
-                # rescore are skipped outright
+                # every (local) entity frozen with stationary offsets:
+                # solve and rescore are skipped outright
                 record.update(converged_fraction=1.0,
                               mean_optimizer_iterations=0.0,
                               entities_solved=0, refresh=False)
-                return 0.0
-        reg = cfg.reg_context()
-        fit = train_random_effect(
-            st.train_data, offs, task=self.task,
-            l2=reg.l2_weight(cfg.reg_weight),
-            l1=reg.l1_weight(cfg.reg_weight),
-            optimizer=cfg.optimizer,
-            config=run_cfg if run_cfg is not None else cfg.opt_config(),
-            w0=st.coeffs, compute_variance=cfg.compute_variance,
-            dtype=self.dtype, normalization=cfg.normalization,
-            active=active, prev_variances=st.variances, device=dev,
-            mesh=self._entity_mesh)
-        if cfg.active_set:
-            st.frozen = [np.asarray(c) for c in fit.converged]
-            if offs_np is None:
-                offs_np = offs.cpu().numpy()
-            if active is None or st.offs_snap is None:
-                st.offs_snap = np.array(offs_np, copy=True)
-            else:
-                # re-solved entities get a fresh drift reference; frozen
-                # ones keep the offsets they last solved against
-                for b, bucket in enumerate(st.train_data.buckets):
-                    if bucket.num_entities == 0 or not active[b].any():
-                        continue
-                    rows = bucket.sample_idx[active[b]]
-                    rows = rows[rows >= 0]
-                    st.offs_snap[rows] = offs_np[rows]
-        st.coeffs = fit.coefficients
-        st.variances = fit.variances
-        record.update(
-            converged_fraction=fit.converged_fraction,
-            mean_optimizer_iterations=fit.mean_iterations,
-            entities_solved=fit.entities_solved,
-            refresh=bool(refresh))
-        # incremental rescoring after a partial solve: only rows of
-        # re-solved entities are recomputed and overwritten
-        prev = scores[cfg.name]
-        new = score_random_effect(
-            st.train_view, st.coeffs, n, self.dtype,
-            prev=None if active is None else prev, changed=active,
-            device=dev, mesh=self._entity_mesh)
-        delta = float(torch.max(torch.abs(new - prev))) if n else 0.0
-        rt.replace(prev, new)
-        scores[cfg.name] = new
-        if validation is not None and cfg.name in val_states:
-            new_v = score_random_effect(
-                val_states[cfg.name], st.coeffs, val_n, self.dtype,
-                prev=None if active is None else val_scores[cfg.name],
+                if not sharded:
+                    return 0.0
+                solve = False  # still takes part in the exchange below
+        prev_local = st.local_scores if sharded else scores[cfg.name]
+        prev_val_local = (st.local_val_scores if sharded
+                          else val_scores.get(cfg.name))
+        new_local, new_val_local = prev_local, None
+        if solve:
+            reg = cfg.reg_context()
+            fit = train_random_effect(
+                st.train_data, offs, task=self.task,
+                l2=reg.l2_weight(cfg.reg_weight),
+                l1=reg.l1_weight(cfg.reg_weight),
+                optimizer=cfg.optimizer,
+                config=run_cfg if run_cfg is not None else cfg.opt_config(),
+                w0=st.coeffs, compute_variance=cfg.compute_variance,
+                dtype=self.dtype, normalization=cfg.normalization,
+                active=active, prev_variances=st.variances, device=dev,
+                mesh=self._entity_mesh)
+            if cfg.active_set:
+                st.frozen = [np.asarray(c) for c in fit.converged]
+                if offs_np is None:
+                    offs_np = offs.cpu().numpy()
+                if active is None or st.offs_snap is None:
+                    st.offs_snap = np.array(offs_np, copy=True)
+                else:
+                    # re-solved entities get a fresh drift reference;
+                    # frozen ones keep the offsets they last solved against
+                    for b, bucket in enumerate(st.train_data.buckets):
+                        if bucket.num_entities == 0 or not active[b].any():
+                            continue
+                        rows = bucket.sample_idx[active[b]]
+                        rows = rows[rows >= 0]
+                        st.offs_snap[rows] = offs_np[rows]
+            st.coeffs = fit.coefficients
+            st.variances = fit.variances
+            record.update(
+                converged_fraction=fit.converged_fraction,
+                mean_optimizer_iterations=fit.mean_iterations,
+                entities_solved=fit.entities_solved,
+                refresh=bool(refresh))
+            # incremental rescoring after a partial solve: only rows of
+            # re-solved entities are recomputed and overwritten (in the
+            # LOCAL vector when sharded: unowned rows stay zero there)
+            new_local = score_random_effect(
+                st.train_view, st.coeffs, n, self.dtype,
+                prev=None if active is None else prev_local,
                 changed=active, device=dev, mesh=self._entity_mesh)
+            if validation is not None and cfg.name in val_states:
+                new_val_local = score_random_effect(
+                    val_states[cfg.name], st.coeffs, val_n, self.dtype,
+                    prev=None if active is None else prev_val_local,
+                    changed=active, device=dev, mesh=self._entity_mesh)
+
+        if not sharded:
+            delta = (float(torch.max(torch.abs(new_local - scores[cfg.name])))
+                     if n else 0.0)
+            rt.replace(scores[cfg.name], new_local)
+            scores[cfg.name] = new_local
+            if new_val_local is not None:
+                if vt is not None:
+                    vt.replace(val_scores[cfg.name], new_val_local)
+                val_scores[cfg.name] = new_val_local
+            return delta
+
+        # -- entity-sharded: the delta-only exchange ------------------------
+        has_val = validation is not None and cfg.name in val_states
+        if has_val and new_val_local is None:
+            new_val_local = st.local_val_scores  # skipped solve: unchanged
+        new_global, new_val_global, comm_bytes, comm_s = (
+            self._exchange_scores(
+                f"cd:{it}:{cfg.name}", st, new_local, scores[cfg.name],
+                new_val_local if has_val else None, val_scores[cfg.name]))
+        record["comm_seconds"] = comm_s
+        record["comm_bytes"] = comm_bytes
+        delta = (float(torch.max(torch.abs(new_global - scores[cfg.name])))
+                 if n else 0.0)
+        rt.replace(scores[cfg.name], new_global)
+        scores[cfg.name] = new_global
+        if has_val:
             if vt is not None:
-                vt.replace(val_scores[cfg.name], new_v)
-            val_scores[cfg.name] = new_v
+                vt.replace(val_scores[cfg.name], new_val_global)
+            val_scores[cfg.name] = new_val_global
         return delta
+
+    def _exchange_scores(self, tag, st, new_local, prev_global,
+                         new_val_local, prev_val_global):
+        """Publish this shard's bitwise-changed rows (train and
+        validation) and scatter the union of every shard's rows into the
+        global vectors. Each row's entity has one owner, so the row sets
+        are disjoint and the scatter lands on the vector the single-host
+        loop computes; unchanged rows are not shipped, which keeps the
+        bytes per sweep proportional to the moving frontier, not the
+        table. Returns ``(global, val_global, bytes, seconds)``."""
+        dev = self.device
+        new_np = new_local.cpu().numpy()
+        rows, vals = _changed_rows(new_np, st.local_scores.cpu().numpy())
+        if new_val_local is not None:
+            vrows, vvals = _changed_rows(new_val_local.cpu().numpy(),
+                                         st.local_val_scores.cpu().numpy())
+        else:
+            vrows = np.zeros(0, np.int32)
+            vvals = np.zeros(0, new_np.dtype)
+        b0, t0 = self._comm.bytes_gathered, self._comm.seconds
+        gathered = exchange_score_updates([rows, vals, vrows, vvals],
+                                          tag=tag, stats=self._comm)
+        comm_bytes = self._comm.bytes_gathered - b0
+        comm_s = self._comm.seconds - t0
+        new_global = torch.as_tensor(_scatter_rows(
+            prev_global.cpu().numpy(), [g[0] for g in gathered],
+            [g[1] for g in gathered]), device=dev)
+        new_val_global = prev_val_global
+        if new_val_local is not None:
+            new_val_global = torch.as_tensor(_scatter_rows(
+                prev_val_global.cpu().numpy(), [g[2] for g in gathered],
+                [g[3] for g in gathered]), device=dev)
+            st.local_val_scores = new_val_local
+        st.local_scores = new_local
+        return new_global, new_val_global, comm_bytes, comm_s
 
     def _build_model(self, states) -> GameModel:
         coords = {}
@@ -1010,10 +1229,201 @@ class CoordinateDescent:
                                    else st.variances[b]),
                         sketch=(lm0 if isinstance(lm0, SketchProjection)
                                 else None)))
+                if self._sharded:
+                    # the one place the full entity table crosses the wire:
+                    # save points (checkpoints and the final model), never
+                    # per sweep. A collective: every process reaches
+                    # _build_model at the same points (the sharded drivers
+                    # give other ranks a no-op checkpoint callback)
+                    gathered = allgather_objects(
+                        buckets, tag=f"model:{cfg.name}", stats=self._comm)
+                    buckets = [b for shard in gathered for b in shard]
                 coords[cfg.name] = RandomEffectModel(
                     cfg.name, buckets, self.task, cfg.feature_shard,
                     entity_column=cfg.entity_column)
         return GameModel(coords, self.task)
+
+    # -- in-job recovery -------------------------------------------------
+    def _recovery_payload(self, states, scores, val_scores, validation):
+        """This rank's sweep-start snapshot: everything a survivor set
+        needs to resume the sweep bit for bit. The replicated state (fixed
+        coefficients, global score vectors) plus this shard's
+        random-effect tables; sharded runs also record the bucket-level
+        entity table (ids, projections, coefficients) so that a SHRUNK
+        survivor set can redistribute a dead rank's entities through the
+        warm-start remap. All host numpy copies."""
+        fixed, random = {}, {}
+        for cfg in self.configs:
+            st = states[cfg.name]
+            if cfg.coordinate_type == "fixed":
+                fixed[cfg.name] = {"w": _host_or_none(st.w),
+                                   "variances": _host_or_none(st.variances)}
+                continue
+            buckets = None
+            if self._sharded and st.coeffs is not None:
+                buckets = []
+                for b, bucket in enumerate(st.train_data.buckets):
+                    lm0 = bucket.local_maps[0] if bucket.local_maps else None
+                    buckets.append({
+                        "entity_ids": np.asarray(bucket.entity_ids),
+                        "projection": _host_or_none(bucket.projection),
+                        "coefficients": np.array(st.coeffs[b], copy=True),
+                        "frozen": (None if st.frozen is None
+                                   else np.array(st.frozen[b], copy=True)),
+                        "sketch": (lm0 if isinstance(lm0, SketchProjection)
+                                   else None),
+                    })
+            random[cfg.name] = {
+                "coeffs": (None if st.coeffs is None
+                           else [np.array(c, copy=True) for c in st.coeffs]),
+                "frozen": (None if st.frozen is None
+                           else [np.array(f, copy=True) for f in st.frozen]),
+                "offs_snap": (None if st.offs_snap is None
+                              else np.array(st.offs_snap, copy=True)),
+                "local_scores": _host_or_none(st.local_scores),
+                "local_val_scores": _host_or_none(st.local_val_scores),
+                "buckets": buckets,
+            }
+        return {
+            "fixed": fixed,
+            "random": random,
+            "scores": {k: _host(v) for k, v in scores.items()},
+            "val_scores": (None if validation is None else
+                           {k: _host(v) for k, v in val_scores.items()}),
+        }
+
+    def _recovery_restore(self, plan, train, validation, states, val_states,
+                          scores, val_scores, history, recovery) -> int:
+        """Roll the run back to the plan's agreed committed sweep. A pure
+        rollback (same membership) restores every table from this rank's
+        own snapshot in place. A shrink also recomputes the entity owner
+        map over the survivors, rebuilds the random states against it and
+        redistributes the dead rank's entities from the old members'
+        committed bucket tables through the warm-start remap; local score
+        vectors are re-derived by scoring the redistributed coefficients.
+        Random-effect variances are not snapshotted (they are
+        O(entities * dim^2)): a recovered run recomputes them at its next
+        solve. Returns the sweep to resume from."""
+        dtype, dev = self.dtype, self.device
+        n = train.num_samples
+        val_n = validation.num_samples if validation is not None else 0
+
+        def tensor(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+
+        def zeros(k):
+            return torch.zeros(k, dtype=dtype, device=dev)
+
+        own = plan.snapshots[plan.own_rank]
+        remap = plan.remapped and self._sharded
+        old_spec = self.entity_shard
+        if remap:
+            self.entity_shard = EntityShardSpec(plan.new_num_shards,
+                                                plan.new_shard_index)
+            self._sharded = self.entity_shard.active
+            self._build_random_states(train, validation, states, val_states)
+        for cfg in self.configs:
+            if cfg.coordinate_type != "fixed":
+                continue
+            snap = own["fixed"][cfg.name]
+            st = states[cfg.name]
+            st.w = None if snap["w"] is None else tensor(snap["w"])
+            st.variances = (None if snap["variances"] is None
+                            else tensor(snap["variances"]))
+        for name, arr in own["scores"].items():
+            scores[name] = tensor(arr)
+        if validation is not None and own.get("val_scores") is not None:
+            for name, arr in own["val_scores"].items():
+                val_scores[name] = tensor(arr)
+        for cfg in self.configs:
+            if cfg.coordinate_type != "random":
+                continue
+            st = states[cfg.name]
+            snap = own["random"][cfg.name]
+            st.variances = None
+            if not remap:
+                st.coeffs = (None if snap["coeffs"] is None
+                             else [np.array(c, copy=True)
+                                   for c in snap["coeffs"]])
+                st.frozen = (None if snap["frozen"] is None
+                             else [np.array(f, copy=True)
+                                   for f in snap["frozen"]])
+                st.offs_snap = (None if snap["offs_snap"] is None
+                                else np.array(snap["offs_snap"], copy=True))
+                if self._sharded:
+                    st.local_scores = (
+                        zeros(n) if snap["local_scores"] is None
+                        else tensor(snap["local_scores"]))
+                    st.local_val_scores = (
+                        zeros(val_n) if snap["local_val_scores"] is None
+                        else tensor(snap["local_val_scores"]))
+                continue
+            merged = []
+            for r in plan.old_members:
+                b = plan.snapshots[r]["random"][cfg.name]["buckets"]
+                if b:
+                    merged.extend(b)
+            if not merged:
+                # the failure came before this coordinate's first solve
+                st.coeffs = st.frozen = st.offs_snap = None
+                st.local_scores, st.local_val_scores = zeros(n), zeros(val_n)
+                continue
+            prev = RandomEffectModel(
+                cfg.name,
+                [RandomEffectBucket(
+                    entity_ids=b["entity_ids"],
+                    coefficients=b["coefficients"],
+                    projection=b["projection"], variances=None,
+                    sketch=b["sketch"]) for b in merged],
+                self.task, cfg.feature_shard,
+                entity_column=cfg.entity_column)
+            st.coeffs = _coeffs_from_prev(prev, st.train_data)
+            # active-set freeze flags travel per ENTITY (layout-free)
+            fmap = {}
+            for b in merged:
+                if b["frozen"] is None:
+                    continue
+                for eid, fz in zip(b["entity_ids"], b["frozen"]):
+                    fmap[str(eid)] = bool(fz)
+            st.frozen = (None if not fmap else [
+                np.asarray([fmap.get(str(e), False)
+                            for e in bucket.entity_ids], bool)
+                for bucket in st.train_data.buckets])
+            # each row's residual reference belongs to the entity's OLD
+            # owner: that shard solved it last, so its snapshot holds the
+            # row's value as of that solve
+            snaps_offs = [plan.snapshots[r]["random"][cfg.name]["offs_snap"]
+                          for r in plan.old_members]
+            if any(o is None for o in snaps_offs):
+                st.offs_snap = None
+            else:
+                old_owner = old_spec.owner_of(
+                    train.entity_ids[cfg.entity_column])
+                merged_offs = np.array(np.asarray(snaps_offs[0]), copy=True)
+                for si in range(1, len(plan.old_members)):
+                    rows = old_owner == si
+                    merged_offs[rows] = np.asarray(snaps_offs[si])[rows]
+                st.offs_snap = merged_offs
+            if self._sharded:
+                st.local_scores = score_random_effect(
+                    st.train_view, st.coeffs, n, dtype, device=dev)
+                st.local_val_scores = (
+                    score_random_effect(val_states[cfg.name], st.coeffs,
+                                        val_n, dtype, device=dev)
+                    if validation is not None and cfg.name in val_states
+                    else zeros(val_n))
+        history[:] = [r for r in history
+                      if r.get("iteration", -1) < plan.sweep]
+        # re-commit the restored state at the agreed sweep under the NEW
+        # membership: the survivors re-enter the loop from an aligned,
+        # rollback-able point (this also closes the recovery timer)
+        recovery.commit(plan.sweep, lambda: self._recovery_payload(
+            states, scores, val_scores, validation), force=True)
+        _log.warning(
+            "recovery: restored to committed sweep %d on %d shard(s) after "
+            "%s; resuming", plan.sweep, len(plan.members),
+            plan.failure_class)
+        return plan.sweep
 
     def _load_warm_start(self, model, states, scores, val_scores,
                          train, validation, val_states, val_feats):
@@ -1050,6 +1460,11 @@ class CoordinateDescent:
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
         else np.asarray(a)
+
+
+def _host_or_none(a) -> Optional[np.ndarray]:
+    """A host copy of ``a`` (None stays None)."""
+    return None if a is None else np.array(_host(a), copy=True)
 
 
 def _coeffs_from_prev(prev, train_data) -> List[np.ndarray]:

@@ -23,9 +23,10 @@ source and makes the job pay the decode exactly ONCE:
 
 The cache holds the chunks only: each chunk's column-sorted view is built
 on the device after the chunk lands (``parallel/streaming.py``), so the
-format is the JAX package's. Not here: the fault-injection sites
-(``chunk_cache.spill``/``commit``) are ROADMAP item 17, the chunk-cache
-pass counters of the training metrics item 20.
+format is the JAX package's. Fault-injection sites: ``chunk_cache.spill``
+(before each chunk's write to the staging directory) and
+``chunk_cache.commit`` (before the staging directory's rename). Not here:
+the chunk-cache pass counters of the training metrics, ROADMAP item 20.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.parallel.streaming import HostChunk
 
 __all__ = ["ChunkCacheSource", "source_fingerprint"]
@@ -289,6 +291,7 @@ class ChunkCacheSource:
                         self.enabled = False
                         writer = None
                 if writer is not None:
+                    fault_injection.check("chunk_cache.spill")
                     writer.write(i, chunk)
                 done += 1
                 yield chunk
@@ -304,6 +307,7 @@ class ChunkCacheSource:
                         "bytes": total,
                         "fields": writer.meta_fields,
                     }, f, indent=2)
+                fault_injection.check("chunk_cache.commit")
                 try:
                     os.rename(staging, self.cache_path)
                     committed = True

@@ -1,8 +1,7 @@
 """Durable atomic-rename commits: fsync the file AND its directory (a copy
-of ``photon_ml_tpu/io/durable.py`` without its ``durable.commit``
-fault-injection site, which comes with the port's fault injection, ROADMAP
-Queue 1 item 17, and without ``durable_dir_rename``, which only the model
-registry calls, item 19).
+of ``photon_ml_tpu/io/durable.py``, with its ``durable.commit``
+fault-injection site, without ``durable_dir_rename``, which only the model
+registry calls, ROADMAP item 19).
 
 Every commit point in the tree (resume markers, registry ``LATEST``,
 trace files, scoring outputs) uses the temp-file + ``os.replace`` idiom,
@@ -25,6 +24,8 @@ no worse than before.
 from __future__ import annotations
 
 import os
+
+from photon_ml_tpu_torch.parallel import fault_injection
 
 __all__ = ["durable_replace", "fsync_file", "fsync_dir"]
 
@@ -58,8 +59,13 @@ def fsync_dir(path: str) -> None:
 
 def durable_replace(tmp: str, dst: str) -> None:
     """Atomically AND durably commit ``tmp`` over ``dst``: fsync the temp
-    file's content, rename, fsync the destination's parent directory."""
+    file's content, rename, fsync the destination's parent directory.
+
+    The ``durable.commit`` fault site fires inside the crash window
+    (content synced, rename not yet issued) so tests can prove a
+    mid-commit crash leaves ``dst`` untouched."""
     fsync_file(tmp)
+    fault_injection.check("durable.commit")
     os.replace(tmp, dst)
     fsync_dir(os.path.dirname(os.path.abspath(dst)))
 

@@ -43,6 +43,7 @@ from photon_ml_tpu_torch.models import (
     RandomEffectBucket,
     RandomEffectModel,
 )
+from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.types import resolve_device
 
 
@@ -144,6 +145,10 @@ def _save_game_model_tree(
     os.makedirs(directory, exist_ok=True)
     meta = {"task": model.task, "coordinates": []}
     for name, coord in model.coordinates.items():
+        # injection site: a crash mid-save (device loss during the
+        # device-to-host reads, SIGKILL); no half-written tree is ever
+        # visible at the final path
+        fault_injection.check("model_io.save_coordinate")
         imap = index_maps[coord.feature_shard]
         inverse = imap.inverse()
         if isinstance(coord, FixedEffectModel):
@@ -217,6 +222,7 @@ def _save_game_model_tree(
         imap.save(os.path.join(directory, f"index-map.{coord.feature_shard}.json"))
     # last write wins: metadata.json is the completeness marker loaders
     # look for, so it lands only after every coefficient file
+    fault_injection.check("model_io.save_metadata")
     with open(os.path.join(directory, "metadata.json"), "w") as f:
         json.dump(meta, f, indent=2)
 

@@ -25,12 +25,16 @@ slower decode.
 ``process_part=(i, n)`` keeps one contiguous share of the container blocks
 per process, so a multi-process streamed fit reads each row once.
 
-Not here: the fault-injection sites (``stream.block_payload``,
-``stream.chunk``) are ROADMAP item 17.
+Fault-injection sites: ``stream.block_payload`` (a ``truncate`` fault
+halves a block's bytes, driving the real truncated-block error) and
+``stream.chunk`` (the consumer side, once per chunk taken). The producer
+thread decodes on behalf of the consuming process, so it carries that
+process's index for per-process fault plans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import logging
@@ -45,6 +49,7 @@ import numpy as np
 from photon_ml_tpu_torch.io.avro import (
     _decoder, _expand, _read_header, _read_long_or_eof,
 )
+from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.parallel.streaming import HostChunk
 
 _log = logging.getLogger("photon_ml_tpu_torch")
@@ -106,7 +111,8 @@ def iter_block_records(blocks: Sequence[BlockRef]) -> Iterator[dict]:
                 dec = _decoder(_read_header(f, blk.path)[0])
                 open_path = blk.path
             f.seek(blk.payload_offset)
-            payload = f.read(blk.payload_size)
+            payload = fault_injection.mangle_payload(
+                "stream.block_payload", f.read(blk.payload_size))
             if len(payload) != blk.payload_size:
                 raise ValueError(f"{blk.path}: truncated block")
             if blk.codec == "deflate":
@@ -483,7 +489,8 @@ class AvroChunkSource:
                     f = open(blk.path, "rb")
                     open_path = blk.path
                 f.seek(blk.payload_offset)
-                payload = f.read(blk.payload_size)
+                payload = fault_injection.mangle_payload(
+                    "stream.block_payload", f.read(blk.payload_size))
                 if len(payload) != blk.payload_size:
                     raise ValueError(f"{blk.path}: truncated block")
                 wave.append((payload, blk))
@@ -592,7 +599,16 @@ class AvroChunkSource:
                 continue
         return False
 
-    def _produce(self, q: queue.Queue, stop: threading.Event):
+    def _produce(self, q: queue.Queue, stop: threading.Event,
+                 fault_proc: Optional[int] = None):
+        # the producer thread acts on behalf of the consuming process:
+        # per-process fault plans address its decode faults
+        ctx = (fault_injection.process_context(fault_proc)
+               if fault_proc is not None else contextlib.nullcontext())
+        with ctx:
+            self._produce_inner(q, stop)
+
+    def _produce_inner(self, q: queue.Queue, stop: threading.Event):
         try:
             pending = _Ragged()
             for wave in self._ragged_waves():
@@ -618,12 +634,20 @@ class AvroChunkSource:
         self.passes += 1
         q: queue.Queue = queue.Queue(maxsize=max(self._prefetch, 1))
         stop = threading.Event()
-        t = threading.Thread(target=self._produce, args=(q, stop),
+        from photon_ml_tpu_torch.parallel.resilience import (
+            current_process_index,
+        )
+
+        t = threading.Thread(target=self._produce,
+                             args=(q, stop, current_process_index()),
                              daemon=True, name="avro-chunk-producer")
         t.start()
         emitted = 0
         try:
             while True:
+                # consumer-side injection point: raise-at-chunk-N faults
+                # fire in the consuming thread
+                fault_injection.check("stream.chunk")
                 try:
                     item = q.get(timeout=self._consumer_poll_s)
                 except queue.Empty:

@@ -224,3 +224,14 @@ extern "C" int photon_mps_f64(const void* values, const void* d, void* local,
                               void* stream) {
   return launch<double>(values, d, local, totals, nnz, n_tiles, stream);
 }
+
+// The CUDA runtime's name and description of a status the launches above
+// returned (cudaGetErrorName / cudaGetErrorString), so the wrapper raises
+// the same error torch's own CUDA checks raise.
+extern "C" const char* photon_cuda_error_name(int err) {
+  return cudaGetErrorName(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* photon_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

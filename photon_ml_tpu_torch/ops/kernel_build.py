@@ -75,4 +75,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.photon_mps_tile.argtypes = []
     lib.photon_mps_tile.restype = ctypes.c_int
+    for name in ("photon_cuda_error_name", "photon_cuda_error_string"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
     return lib

@@ -57,6 +57,18 @@ def _check(values, d_sorted, tile):
             raise ValueError("values must be contiguous")
 
 
+def launch_error(lib, err: int, where: str) -> RuntimeError:
+    """The ``torch.AcceleratorError`` torch's own CUDA checks raise for the
+    CUDA runtime status ``err`` (its name and description from the kernel
+    library's runtime), so ``utils.is_device_loss`` can tell a sticky
+    error (the context is gone: exit 75) from one that is not."""
+    from photon_ml_tpu_torch.utils.config import cuda_error
+
+    return cuda_error(lib.photon_cuda_error_name(err).decode(),
+                      lib.photon_cuda_error_string(err).decode(),
+                      f"{where} (cudaError {err})")
+
+
 def _launch(values, d_sorted, tile):
     from photon_ml_tpu_torch.ops.kernel_build import load_library
 
@@ -80,8 +92,7 @@ def _launch(values, d_sorted, tile):
                  d_sorted.data_ptr(), local.data_ptr(), totals.data_ptr(),
                  nnz, n_tiles, stream)
     if err != 0:
-        raise RuntimeError(f"multiply_prefix_sum kernel launch failed: "
-                           f"cudaError {err}")
+        raise launch_error(lib, err, "multiply_prefix_sum kernel launch")
     multiply_prefix_sum.launches += 1
     return local, totals, tile
 

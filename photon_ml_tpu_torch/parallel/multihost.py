@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import datetime
 import os
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,12 +43,16 @@ def initialize_multihost(
     False for the single-process no-op (no coordinator and no process
     count given), True once the group is up.
 
-    The rendezvous retries with exponential backoff, at most
-    ``max_attempts`` times (default 3, or ``PHOTON_ML_TPU_INIT_ATTEMPTS``),
-    then raises the last error. ``device`` (default ``cuda``) picks the
-    backend and, on CUDA, sets this process's current device to
-    ``cuda:{local_rank % device_count}``. ``timeout_s`` bounds the
-    rendezvous and every later collective."""
+    The rendezvous (the ``multihost.init`` fault site) retries transient
+    failures through ``resilience.retry_transient`` with exponential
+    backoff, at most ``max_attempts`` times (default 3, or
+    ``PHOTON_ML_TPU_INIT_ATTEMPTS``), then raises the last error.
+    ``device`` (default ``cuda``) picks the backend and, on CUDA, sets
+    this process's current device to ``cuda:{local_rank % device_count}``.
+    Either backend carries gloo for host tensors, which the resilience
+    transport's status rounds and the entity-shard exchange use.
+    ``timeout_s`` bounds the rendezvous and every later collective."""
+    from photon_ml_tpu_torch.parallel import fault_injection, resilience
     from photon_ml_tpu_torch.types import resolve_device
 
     if coordinator_address is None and num_processes is None:
@@ -72,18 +75,17 @@ def initialize_multihost(
         backend = "cpu:gloo,cuda:nccl"
     else:
         backend = "gloo"
-    for attempt in range(max(int(max_attempts), 1)):
-        try:
-            # the "multihost.init" fault site is ROADMAP item 17
-            dist.init_process_group(
-                backend, init_method=f"tcp://{coordinator_address}",
-                world_size=int(num_processes), rank=int(process_id),
-                timeout=datetime.timedelta(seconds=timeout_s))
-            return True
-        except (RuntimeError, ConnectionError, OSError):
-            if attempt + 1 >= max_attempts:
-                raise
-            time.sleep(backoff_s * 2.0 ** attempt)
+
+    def _rendezvous():
+        fault_injection.check("multihost.init")
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator_address}",
+            world_size=int(num_processes), rank=int(process_id),
+            timeout=datetime.timedelta(seconds=timeout_s))
+
+    resilience.retry_transient(_rendezvous,
+                               attempts=max(int(max_attempts), 1),
+                               backoff_s=backoff_s)
     return True
 
 

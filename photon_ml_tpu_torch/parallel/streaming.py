@@ -48,8 +48,13 @@ per-chunk program so that a mesh of several local devices put no
 collective into it, and with one process per device each process's chunk
 program has no collective to begin with.
 
-Not here: the ``CollectiveGuard`` around each pass is ROADMAP item 17;
-the trace spans and the training metrics are item 20.
+Each pass's local work runs inside a ``resilience.CollectiveGuard``
+(``stream.fg``, ``stream.hvp``, ``stream.diag``, ``stream.margins``,
+``stream.ladder``, as in the reference) that ends before the pass's
+cross-process sum: a process whose pass fails reports it at the guard's
+health barrier, and every process raises ``PeerFailure`` there instead of
+waiting in the sum. One process pays nothing. Not here: the trace spans
+and the training metrics are ROADMAP item 20.
 """
 
 from __future__ import annotations
@@ -77,6 +82,10 @@ from photon_ml_tpu_torch.parallel.data_parallel import (
     _CSC_APPLY, make_csc_diagonal_hessian, make_csc_path, resolve_sparse_grad,
 )
 from photon_ml_tpu_torch.parallel.multihost import process_count
+from photon_ml_tpu_torch.parallel import fault_injection
+from photon_ml_tpu_torch.parallel.resilience import (
+    CollectiveGuard, current_process_index,
+)
 from photon_ml_tpu_torch.types import (
     LabeledBatch, SparseFeatures, resolve_device,
 )
@@ -237,7 +246,9 @@ def iter_device_chunks(chunks, to_device: Callable,
     the compute stream here, in the consumer, before the chunk is yielded.
     An exception from the source or the upload is re-raised in the
     consumer; a transfer thread that dies without its end-of-pass sentinel
-    fails the pass within the ring's poll interval."""
+    fails the pass within the ring's poll interval. The transfer thread
+    iterates the source on behalf of the consuming process, so it carries
+    that process's index for per-process fault plans."""
     depth = resolve_prefetch_depth(depth)
     if stats is not None:
         stats.passes += 1
@@ -267,8 +278,13 @@ def iter_device_chunks(chunks, to_device: Callable,
     cuda_dev = None
     if torch.cuda.is_available():
         cuda_dev = torch.cuda.current_device()
+    fault_proc = current_process_index()
 
     def produce():
+        with fault_injection.process_context(fault_proc):
+            produce_chunks()
+
+    def produce_chunks():
         it = iter(chunks)
         try:
             if cuda_dev is not None:
@@ -583,10 +599,11 @@ def streaming_value_and_grad(
         w = torch.as_tensor(w, dtype=dtype, device=ops.device)
         f_acc, f_comp = ops.zeros(), ops.zeros()
         g_acc, g_comp = ops.zeros(dim), ops.zeros(dim)
-        for _hc, batch, csc in ops.chunks(chunks):
-            f, g = ops.chunk_fg(w, batch, csc)
-            f_acc, f_comp = _kahan_add(f_acc, f_comp, f)
-            g_acc, g_comp = _kahan_add(g_acc, g_comp, g)
+        with CollectiveGuard("stream.fg"):
+            for _hc, batch, csc in ops.chunks(chunks):
+                f, g = ops.chunk_fg(w, batch, csc)
+                f_acc, f_comp = _kahan_add(f_acc, f_comp, f)
+                g_acc, g_comp = _kahan_add(g_acc, g_comp, g)
         ops.stats.kernel_passes += 1
         f_data, g_data = _cross_process_sum(
             [(f_acc, f_comp), (g_acc, g_comp)], ops.stats)
@@ -617,9 +634,10 @@ def streaming_hvp(
         w = torch.as_tensor(w, dtype=dtype, device=ops.device)
         v = torch.as_tensor(v, dtype=dtype, device=ops.device)
         acc, comp = ops.zeros(dim), ops.zeros(dim)
-        for _hc, batch, csc in ops.chunks(chunks):
-            acc, comp = _kahan_add(acc, comp,
-                                   ops.chunk_hvp(w, v, batch, csc))
+        with CollectiveGuard("stream.hvp"):
+            for _hc, batch, csc in ops.chunks(chunks):
+                acc, comp = _kahan_add(acc, comp,
+                                       ops.chunk_hvp(w, v, batch, csc))
         ops.stats.kernel_passes += 1
         (total,) = _cross_process_sum([(acc, comp)], ops.stats)
         return total + l2 * objective.reg_mask(v)
@@ -647,8 +665,9 @@ def streaming_hessian_diagonal(
                             prefetch_depth, stats)
     w = torch.as_tensor(w, dtype=dtype, device=ops.device)
     acc, comp = ops.zeros(dim), ops.zeros(dim)
-    for _hc, batch, csc in ops.chunks(chunks):
-        acc, comp = _kahan_add(acc, comp, ops.chunk_diag(w, batch, csc))
+    with CollectiveGuard("stream.diag"):
+        for _hc, batch, csc in ops.chunks(chunks):
+            acc, comp = _kahan_add(acc, comp, ops.chunk_diag(w, batch, csc))
     ops.stats.kernel_passes += 1
     (total,) = _cross_process_sum([(acc, comp)], ops.stats)
     return total + objective.reg_diagonal(total, l2)
@@ -872,7 +891,14 @@ def _fit_streaming_lbfgs_margin(objective, chunks, ops, w, l2, config,
     def margins_of(vec, out):
         """One streamed gather pass: per-chunk margins of ``vec`` (offsets
         included) into host numpy ``out``. Chunk i's device->host copy is
-        waited for only after chunk i+1 has been dispatched."""
+        waited for only after chunk i+1 has been dispatched. Guarded
+        though the pass has no collective of its own: the peers run the
+        same pass, and a process failing here would otherwise leave them
+        waiting at the next phase's barrier until the watchdog."""
+        with CollectiveGuard("stream.margins"):
+            return _margins_pass(vec, out)
+
+    def _margins_pass(vec, out):
         pending = None
 
         def finish(p):
@@ -918,16 +944,19 @@ def _fit_streaming_lbfgs_margin(objective, chunks, ops, w, l2, config,
         ONE margin-only streamed pass over the host caches."""
         a = torch.as_tensor(alphas, dtype=dtype, device=dev)[:, None]
         acc, comp = ops.zeros(L), ops.zeros(L)
-        for _i, t in iter_device_chunks(
-                range(n_chunks),
-                lambda i: ops.ring.put(ladder_item(i), "margin trial chunk"),
-                ops.depth, ops.stats):
-            wts, lab = t["weights"], t["labels"]
-            l0 = apply_weights(wts, loss.loss(mask_margins(wts, t["mw"]),
-                                              lab))
-            m1 = mask_margins(wts, t["mw"] + a * t["mp"])
-            d = torch.sum(apply_weights(wts, loss.loss(m1, lab)) - l0, dim=1)
-            acc, comp = _kahan_add(acc, comp, d)
+        with CollectiveGuard("stream.ladder"):
+            for _i, t in iter_device_chunks(
+                    range(n_chunks),
+                    lambda i: ops.ring.put(ladder_item(i),
+                                           "margin trial chunk"),
+                    ops.depth, ops.stats):
+                wts, lab = t["weights"], t["labels"]
+                l0 = apply_weights(wts, loss.loss(
+                    mask_margins(wts, t["mw"]), lab))
+                m1 = mask_margins(wts, t["mw"] + a * t["mp"])
+                d = torch.sum(apply_weights(wts, loss.loss(m1, lab)) - l0,
+                              dim=1)
+                acc, comp = _kahan_add(acc, comp, d)
         (total,) = _cross_process_sum([(acc, comp)], ops.stats)
         ops.stats.host_reads += 1
         return total.cpu().numpy().astype(np.float64)

@@ -1,2 +1,4 @@
-from photon_ml_tpu_torch.utils.config import resolve_dtype
+from photon_ml_tpu_torch.utils.config import (
+    cuda_error, is_device_loss, resolve_dtype,
+)
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, Timed

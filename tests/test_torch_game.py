@@ -32,6 +32,10 @@ from photon_ml_tpu_torch.game.scoring import score_game_model
 from photon_ml_tpu_torch.interop import (
     game_dataset_from_numpy, game_model_from_numpy,
 )
+from photon_ml_tpu_torch.parallel.entity_shard import (
+    EntityShardSpec, EntityTableBudgetError,
+)
+from photon_ml_tpu_torch.parallel.recovery import RecoveryManager
 
 TOL = 1e-6
 TOL_METRIC = 1e-9
@@ -296,26 +300,71 @@ def test_score_game_model_matches_jax(data):
         score_game_model(port_model, pv.features, {}, device="cpu")
 
 
-_DEFERRED_CASES = [
-    (lambda: CoordinateDescent([], entity_shard=object(), device="cpu"),
-     "item 17"),
-    (lambda: CoordinateDescent([], entity_table_budget_bytes=1,
-                               device="cpu"), "item 17"),
-    (lambda: CoordinateDescent([], recovery=object(), device="cpu"),
-     "item 17"),
-    (lambda: GameEstimator(device="cpu", recovery=object()).fit(
-        None, None, [[]]), "item 17"),
-]
+def _mixed_port_cd(**kw):
+    """The "mixed" scenario's port run with extra CoordinateDescent
+    options."""
+    return _port_cd(_configs(CoordinateConfig, tolerance=1e-6), 4,
+                    evaluators=["auc", "logistic_loss"], **kw)
 
 
-# the ids keep their numbers from before the two streaming options (item
-# 16) and the two mesh options (item 15, the first two cases) were ported
-# and left this list
-@pytest.mark.parametrize("make, item", _DEFERRED_CASES, ids=[
-    f"make{i + 3}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
-def test_deferred_options_raise(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def _assert_same_run(got, want):
+    (m, h), (m_ref, h_ref) = got, want
+    np.testing.assert_array_equal(_fixed_w(m), _fixed_w(m_ref))
+    for b, b_ref in zip(m.coordinates["per-user"].buckets,
+                        m_ref.coordinates["per-user"].buckets):
+        np.testing.assert_array_equal(np.asarray(b.coefficients),
+                                      np.asarray(b_ref.coefficients))
+    assert [r["auc"] for r in h] == [r["auc"] for r in h_ref]
+
+
+def test_entity_shard_of_one_is_the_single_host_run(data):
+    """A one-shard owner map is the single-host layout: no exchange, the
+    same run bit for bit (the sharded runs are in
+    test_torch_entity_shard.py)."""
+    pt, pv = data["port"]
+    _assert_same_run(
+        _mixed_port_cd(entity_shard=EntityShardSpec(1, 0)).run(pt, pv),
+        _runs(data, "mixed")[1])
+
+
+def test_entity_table_budget_fails_before_the_first_sweep(data):
+    pt, pv = data["port"]
+    calls = []
+    with pytest.raises(EntityTableBudgetError, match="per-user"):
+        _mixed_port_cd(entity_table_budget_bytes=1).run(
+            pt, pv, checkpoint_callback=lambda it, m: calls.append(it))
+    assert calls == []
+    _assert_same_run(
+        _mixed_port_cd(entity_table_budget_bytes=1 << 30).run(pt, pv),
+        _runs(data, "mixed")[1])
+
+
+def test_recovery_on_one_process_is_the_plain_run(data, tmp_path):
+    """One process never sees a PeerFailure: a recovery-enabled run
+    commits no snapshot and is the plain run bit for bit (the recovered
+    runs are in test_torch_recovery.py)."""
+    pt, pv = data["port"]
+    rec = RecoveryManager(str(tmp_path / "rec"), max_rank_failures=1)
+    _assert_same_run(_mixed_port_cd(recovery=rec).run(pt, pv),
+                     _runs(data, "mixed")[1])
+    assert rec.stats["snapshots"] == 0 and rec.stats["recoveries"] == 0
+
+
+def test_game_estimator_passes_sharding_and_recovery_through(data,
+                                                             tmp_path):
+    pt, pv = data["port"]
+    rec = RecoveryManager(str(tmp_path / "rec"), max_rank_failures=1)
+    est = GameEstimator(task="logistic", n_iterations=4, device="cpu",
+                        evaluators=["auc", "logistic_loss"],
+                        dtype=torch.float64,
+                        entity_shard=EntityShardSpec(1, 0),
+                        entity_table_budget_bytes=1 << 30, recovery=rec)
+    res = est.fit(pt, pv, [_configs(CoordinateConfig, tolerance=1e-6)])[0]
+    _assert_same_run((res.model, res.history), _runs(data, "mixed")[1])
+    with pytest.raises(EntityTableBudgetError):
+        GameEstimator(device="cpu", dtype=torch.float64,
+                      entity_table_budget_bytes=1).fit(
+            pt, None, [_configs(CoordinateConfig)])
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

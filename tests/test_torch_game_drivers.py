@@ -26,8 +26,9 @@ relative L2 (the two packages sum in different orders); every logged
 validation metric within 1e-9; the scoring drivers' scores of the same
 saved model within 1e-9 and their metrics within 1e-9; each package's
 scores of its own model within 1e-6 of the other's. Each deferred flag
-raises and names its ROADMAP item, and the default ``--device`` raises
-without CUDA."""
+raises and names its ROADMAP item; the sharding and recovery flags on one
+process leave the model as it was bit for bit, and the default
+``--device`` raises without CUDA."""
 
 import json
 import os
@@ -295,20 +296,17 @@ def test_each_package_scores_its_own_model_alike(fixture, runs):
 
 
 _DEFERRED_CASES = [
-    (["--entity-shards", "2"], "17"),
-    (["--re-table-budget-mb", "10"], "17"),
-    (["--auto-resume"], "17"),
-    (["--max-rank-failures", "1"], "17"),
     (["--publish-to", "registry"], "19"),
     (["--profile-dir", "prof"], "20"),
     (["--trace-dir", "trace"], "20"),
 ]
 
 
-# the ids keep their numbers from before the six streaming flags (item 16)
-# and the three multi-process flags (item 15) were ported and left this list
+# the ids keep their numbers from before the six streaming flags (item 16),
+# the three multi-process flags (item 15) and the four recovery and
+# sharding flags (item 17) were ported and left this list
 @pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
-    f"flags{i + 9}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
+    f"flags{i + 13}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
 def test_deferred_flag_raises(tmp_path, flags, item):
     argv = ["--train-data", "absent.avro", "--coordinates", "[]",
             "--output-dir", str(tmp_path / "o"), "--device", "cpu", *flags]
@@ -317,13 +315,70 @@ def test_deferred_flag_raises(tmp_path, flags, item):
     assert not (tmp_path / "o").exists()
 
 
-@pytest.mark.parametrize("flag", ["--recovery-snapshot-every",
-                                  "--trace-sample"])
+@pytest.mark.parametrize("flag", ["--trace-sample"])
 def test_refinements_of_deferred_flags_are_not_accepted(tmp_path, flag):
     with pytest.raises(SystemExit):
         game_training_driver.main(
             ["--train-data", "absent.avro", "--coordinates", "[]",
              "--output-dir", str(tmp_path / "o"), flag, "2"])
+
+
+def _port_argv(fixture, out, *flags):
+    return (_train_argv(fixture, fixture / "imap-port.json")
+            + ["--n-iterations", "2", "--device", "cpu", "--output-dir",
+               str(out), *flags])
+
+
+_ONE_PROCESS_FLAGS = {
+    "entity_shards": ["--entity-shards", "1"],
+    "re_table_budget_mb": ["--re-table-budget-mb", "10"],
+    "auto_resume": ["--auto-resume"],
+    "max_rank_failures": ["--max-rank-failures", "1",
+                          "--recovery-snapshot-every", "2"],
+}
+
+
+@pytest.mark.parametrize("name", list(_ONE_PROCESS_FLAGS))
+def test_sharding_and_recovery_flags_on_one_process(fixture, runs, tmp_path,
+                                                    name):
+    """On one process each flag leaves the run as it was: one shard is the
+    single-host layout, a table under budget trains, --auto-resume
+    without a marker does nothing, and recovery commits no snapshot. The
+    best model equals the plain run's bit for bit."""
+    runs("base")  # builds the index maps
+    plain = fixture / "plain-port"
+    if not plain.exists():
+        assert game_training_driver.main(_port_argv(fixture, plain)) == 0
+    out = tmp_path / "o"
+    assert game_training_driver.main(
+        _port_argv(fixture, out, *_ONE_PROCESS_FLAGS[name])) == 0
+    got = load_game_model(str(out / "best"), device="cpu")
+    want = load_game_model(str(plain / "best"), device="cpu")
+    np.testing.assert_array_equal(
+        got["fixed"].model.coefficients.means.numpy(),
+        want["fixed"].model.coefficients.means.numpy())
+    for b, b_ref in zip(got["per-user"].buckets, want["per-user"].buckets):
+        np.testing.assert_array_equal(np.asarray(b.coefficients),
+                                      np.asarray(b_ref.coefficients))
+    assert not (out / "recovery").exists()
+    assert not (out / "RESUME.json").exists()
+
+
+def test_entity_shards_and_table_budget_fail_fast(fixture, runs, tmp_path):
+    from photon_ml_tpu_torch.parallel.entity_shard import (
+        EntityTableBudgetError,
+    )
+
+    runs("base")
+    with pytest.raises(SystemExit, match="process count"):
+        game_training_driver.main(_port_argv(fixture, tmp_path / "a",
+                                             "--entity-shards", "2"))
+    assert not (tmp_path / "a").exists()  # before any data is read
+    with pytest.raises(EntityTableBudgetError, match="entity-shards"):
+        game_training_driver.main(_port_argv(
+            fixture, tmp_path / "b", "--re-table-budget-mb", "1e-6"))
+    assert not any(e["event"] == "cd_iteration"
+                   for e in _log(tmp_path / "b"))
 
 
 def test_scoring_out_of_core_raises(tmp_path):

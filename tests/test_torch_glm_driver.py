@@ -19,7 +19,9 @@ lambda's coefficients and variances (the JAX driver's gradient is a
 scatter-add on the CPU, the port's the column-sorted kernel path's plain
 version: two summation orders, compounded over the iterations); 1e-9 on
 every validation metric and on the Hosmer-Lemeshow statistic. Each deferred
-flag raises, and the default ``--device`` raises without CUDA."""
+flag raises; the recovery flags leave a clean run's models byte for byte,
+a killed screened path resumes to the uninterrupted path's models byte
+for byte, and the default ``--device`` raises without CUDA."""
 
 import json
 import os
@@ -201,24 +203,88 @@ def test_diagnostics_report_matches(runs):
 
 
 _DEFERRED_CASES = [
-    (["--auto-resume"], "17"),
-    (["--max-rank-failures", "1"], "17"),
-    (["--auto-resume", "--path-screen", "strong"], "17"),
     (["--profile-dir", "prof"], "20"),
     (["--trace-dir", "trace"], "20"),
 ]
 
 
-# the ids keep their numbers from before the six streaming flags (item 16)
-# and the three multi-process flags (item 15) were ported and left this list
+# the ids keep their numbers from before the six streaming flags (item 16),
+# the three multi-process flags (item 15) and the three recovery cases
+# (item 17) were ported and left this list
 @pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
-    f"flags{i + 9}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
+    f"flags{i + 12}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
 def test_deferred_flag_raises(tmp_path, flags, item):
     argv = ["--train-data", "absent.avro", "--output-dir", str(tmp_path / "o"),
             "--device", "cpu", *flags]
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item} "):
         glm_driver.main(argv)
     assert not (tmp_path / "o").exists()
+
+
+def _svm_argv(fixtures, out, *flags):
+    return ["--train-data", str(fixtures / "train.svm"),
+            "--validation-data", str(fixtures / "val.svm"),
+            "--input-format", "libsvm", *COMMON, "--device", "cpu",
+            "--output-dir", str(out), *flags]
+
+
+def _same_models(a, b):
+    import filecmp
+
+    for sub in ("best", *(os.path.join("all", f"lambda-{float(g):g}")
+                          for g in GRID)):
+        d = os.path.join(sub, "fixed-effect", "global")
+        names = sorted(os.listdir(a / d))
+        match, mismatch, errors = filecmp.cmpfiles(a / d, b / d, names,
+                                                   shallow=False)
+        assert match == names and not mismatch and not errors, sub
+
+
+@pytest.mark.parametrize("flags", [["--auto-resume"],
+                                   ["--max-rank-failures", "1"]],
+                         ids=["auto_resume", "max_rank_failures"])
+def test_recovery_flags_on_a_clean_run(fixtures, tmp_path, flags):
+    """Without a marker --auto-resume does nothing, and on one process
+    --max-rank-failures never retries: the models are the plain run's
+    byte for byte, and no marker is left."""
+    plain = tmp_path / "plain"
+    assert glm_driver.main(_svm_argv(fixtures, plain)) == 0
+    out = tmp_path / "o"
+    assert glm_driver.main(_svm_argv(fixtures, out, *flags)) == 0
+    _same_models(plain, out)
+    assert not (out / "RESUME_GLM.npz").exists()
+
+
+def test_screened_path_resumes_from_the_marker(fixtures, tmp_path):
+    """A screened path killed by a device loss at its second lambda exits
+    75; --auto-resume seeds the path solver with the first lambda's
+    solution instead of re-solving it and saves the uninterrupted path's
+    models byte for byte."""
+    from photon_ml_tpu_torch.parallel import fault_injection as fi
+
+    flags = ["--reg-type", "elastic_net", "--path-screen", "strong"]
+    clean = tmp_path / "clean"
+    assert glm_driver.main(_svm_argv(fixtures, clean, *flags)) == 0
+    out = tmp_path / "o"
+    fi.install([fi.Fault(site="glm.lambda", at=1, kind="device_loss")])
+    try:
+        assert glm_driver.main(_svm_argv(fixtures, out, *flags)) == 75
+    finally:
+        fi.clear()
+    assert (out / "RESUME_GLM.npz").exists()
+    with pytest.raises(Exception, match="path_screen"):
+        glm_driver.main(_svm_argv(fixtures, out, "--reg-type", "elastic_net",
+                                  "--auto-resume"))
+    assert glm_driver.main(_svm_argv(fixtures, out, *flags,
+                                     "--auto-resume")) == 0
+    assert not (out / "RESUME_GLM.npz").exists()
+    events = [e["event"] for e in _log(out)]
+    resumed = _log(out)[events.index("auto_resume"):]
+    # only the unfinished lambdas are trained after the resume
+    assert [e["reg_weight"] for e in resumed
+            if e["event"] == "lambda_trained"] == [float(g)
+                                                   for g in GRID[1:]]
+    _same_models(clean, out)
 
 
 def test_default_device_raises_without_cuda(fixtures, tmp_path, monkeypatch):

@@ -26,6 +26,13 @@
   rtol 1e-6, atol 1e-9.
 * The GLM driver as two processes (``--num-processes 2``) against one
   process: the models at rtol 1e-6, atol 1e-9.
+* The resilience layer over the real gloo world (its own pair of
+  processes, FAULT_LEG_TIMEOUT_S from spawn to exit): a raise at
+  ``cd.step`` on rank 1 is a ``PeerFailure`` on both ranks; a stall
+  longer than a 3 s barrier timeout is a ``WatchdogTimeout`` on rank 0
+  within the timeout plus 1.5 s; a rollback recovery of an entity-sharded
+  CD is bit-equal to the uninterrupted two-process run, which is bit-equal
+  to the one-process run.
 """
 
 import json
@@ -275,3 +282,48 @@ def test_glm_driver_two_processes_match_one(runs):
         start = json.loads(f.readline())
     assert start["distributed"] is True
     assert (start["process_index"], start["process_count"]) == (0, WORLD)
+
+
+# -- the resilience layer over the real gloo world --------------------------
+FAULT_LEG_TIMEOUT_S = 60  # spawn to exit; a hang fails the leg, not the run
+
+
+@pytest.fixture(scope="module")
+def fault_ranks(tmp_path_factory):
+    """The ``faults`` scenario on two processes (its own group), and the
+    port's one-process sharded-CD reference built while they run."""
+    root = tmp_path_factory.mktemp("mp_faults")
+    wait = mpw.start(WORLD, ["faults"], str(root))
+    one = mpw.run_sharded_cd(0, 1)
+    return wait(FAULT_LEG_TIMEOUT_S), one
+
+
+def test_real_process_raise_is_a_peer_failure_on_both_ranks(fault_ranks):
+    ranks, _ = fault_ranks
+    for res in ranks:
+        assert str(res["faults/raise_outcome"]) == "PeerFailure"
+        # both learn who failed and how: rank 1, a generic error (1)
+        assert res["faults/raise_failed"].tolist() == [[1, 1]]
+
+
+def test_real_process_watchdog_fires_within_its_timeout(fault_ranks):
+    ranks, _ = fault_ranks
+    assert str(ranks[0]["faults/watchdog_outcome"]) == "WatchdogTimeout"
+    # rank 0 waits out WATCHDOG_S at its barrier, not rank 1's stall
+    assert float(ranks[0]["faults/watchdog_s"]) < mpw.WATCHDOG_S + 1.5
+    assert float(ranks[0]["faults/watchdog_s"]) < mpw.WATCHDOG_DELAY_S
+
+
+def test_real_process_rollback_is_bit_equal_to_uninterrupted(fault_ranks):
+    ranks, one = fault_ranks
+    for key in ("w_fixed", "auc", "re_ids", "re_coef"):
+        clean = _rank_equal(ranks, f"faults/clean_{key}")
+        np.testing.assert_array_equal(
+            _rank_equal(ranks, f"faults/rollback_{key}"), clean, key)
+        # the sharded run is the one-process run bit for bit
+        np.testing.assert_array_equal(clean, one[key], key)
+    for res in ranks:
+        rollbacks, recoveries, snapshots = res["faults/rollback_stats"]
+        assert (rollbacks, recoveries) == (1, 1)
+        # sweeps 0, 1, 2 and the re-commit of sweep 1 after the rollback
+        assert snapshots == mpw.FAULT_SWEEPS + 1

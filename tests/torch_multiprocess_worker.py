@@ -402,10 +402,100 @@ def run_path(mesh):
     return out
 
 
+FAULT_SWEEPS = 3
+WATCHDOG_S = 3.0  # the barrier timeout of the watchdog leg
+WATCHDOG_DELAY_S = 5.0  # rank 1's stall, longer than WATCHDOG_S
+
+
+def run_sharded_cd(rank, world, recovery=None):
+    """Entity-sharded CD of ``game_problem`` over the world's resilience
+    transport (no mesh): the fixed coefficients, every local bucket's
+    coefficients by entity and the AUC history."""
+    import torch
+
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+    from photon_ml_tpu_torch.parallel.entity_shard import EntityShardSpec
+
+    ds = game_dataset()
+    spec = None if world == 1 else EntityShardSpec(world, rank)
+    model, history = CoordinateDescent(
+        game_configs(), task="logistic", n_iterations=FAULT_SWEEPS,
+        evaluators=["auc"], dtype=torch.float64, device="cpu",
+        entity_shard=spec, recovery=recovery).run(ds, ds)
+    out = {"w_fixed": model.coordinates["global"].model.coefficients
+           .means.numpy(),
+           "auc": np.asarray([h["auc"] for h in history])}
+    ids, coefs = [], []
+    for bucket in model.coordinates["per-user"].buckets:
+        ids += [str(e) for e in bucket.entity_ids]
+        coefs += list(np.asarray(bucket.coefficients))
+    order = np.argsort(ids)
+    out["re_ids"] = np.asarray(ids)[order]
+    out["re_coef"] = np.stack(coefs)[order]
+    return out
+
+
+def scenario_faults(args):
+    """The resilience layer over the real gloo world, in order: an
+    uninterrupted entity-sharded CD; a raise at ``cd.step`` on rank 1
+    (``PeerFailure`` expected on both ranks); the same raise under a
+    ``RecoveryManager`` (a rollback, bit-equal to the first run); then
+    rank 1 stalls at ``cd.step`` longer than a WATCHDOG_S barrier timeout
+    (``WatchdogTimeout`` expected on rank 0). The last leg leaves the
+    group unusable, so the process exits without a teardown."""
+    import time
+
+    from photon_ml_tpu_torch.parallel import fault_injection as fi
+    from photon_ml_tpu_torch.parallel.recovery import RecoveryManager
+    from photon_ml_tpu_torch.parallel.resilience import (
+        PeerFailure, WatchdogTimeout,
+    )
+
+    global _ABANDON
+    rank, world = args.rank, args.world
+    out = {f"clean_{k}": v for k, v in run_sharded_cd(rank, world).items()}
+
+    # cd.step fires once per (sweep, coordinate): occurrence 3 is sweep
+    # 1's random step, after sweep 1's snapshot is committed
+    fi.install([fi.Fault(site="cd.step", kind="raise", process=1, at=3)])
+    try:
+        run_sharded_cd(rank, world)
+        out["raise_outcome"] = np.asarray("returned")
+    except PeerFailure as e:
+        out["raise_outcome"] = np.asarray(type(e).__name__)
+        out["raise_failed"] = np.asarray(sorted(e.failed.items()))
+    fi.install([fi.Fault(site="cd.step", kind="raise", process=1, at=3)])
+    rec = RecoveryManager(os.path.join(args.out, "recovery"),
+                          max_rank_failures=0, backoff_s=0.01, jitter=0.0)
+    out.update({f"rollback_{k}": v
+                for k, v in run_sharded_cd(rank, world, rec).items()})
+    out["rollback_stats"] = np.asarray(
+        [rec.stats["rollbacks"], rec.stats["recoveries"],
+         rec.stats["snapshots"]])
+
+    os.environ["PHOTON_ML_TPU_BARRIER_TIMEOUT_S"] = str(WATCHDOG_S)
+    fi.install([fi.Fault(site="cd.step", kind="delay", process=1, at=1,
+                         delay_s=WATCHDOG_DELAY_S)])
+    _ABANDON = True
+    t0 = time.monotonic()
+    try:
+        run_sharded_cd(rank, world)
+        out["watchdog_outcome"] = np.asarray("returned")
+    except WatchdogTimeout:
+        out["watchdog_outcome"] = np.asarray("WatchdogTimeout")
+    except Exception as e:  # the stalled rank meets its dead peer
+        out["watchdog_outcome"] = np.asarray(type(e).__name__)
+    out["watchdog_s"] = np.asarray(time.monotonic() - t0)
+    fi.clear()
+    return out
+
+
+_ABANDON = False  # set by a scenario that leaves the group unusable
+
 SCENARIOS = {"grads": scenario_grads, "fits": scenario_fits,
              "auc": scenario_auc, "stream": scenario_stream,
              "ooc": scenario_ooc, "cd": scenario_cd, "path": scenario_path,
-             "re": scenario_re}
+             "re": scenario_re, "faults": scenario_faults}
 
 
 def main(argv=None):
@@ -431,6 +521,11 @@ def main(argv=None):
         results.update({f"{name}/{k}": np.asarray(v)
                         for k, v in SCENARIOS[name](args).items()})
     np.savez(os.path.join(args.out, f"rank{args.rank}.npz"), **results)
+    if _ABANDON:
+        # a collective was abandoned: a teardown would wait on it
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     dist.destroy_process_group()
     return 0
 
