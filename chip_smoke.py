@@ -9,13 +9,25 @@ Phases, each of which raises on failure (so any failure exits non-zero):
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
 2. the kernel build from ``photon_ml_tpu_torch/ops/csrc`` (nvcc, sm_90a);
-3. the hand-written ``multiply_prefix_sum`` kernel (float64 prefix of a
-   float32 product) against its plain PyTorch version and a per-tile
-   float64 reference, on the card, at the
-   main path's nnz and at a ragged size, with and without values; its
-   bit-for-bit determinism; ``csc_transpose_apply_kernel`` against a
-   float64 reference on all-positive ``d``; and the kernel's, the plain
-   version's and ``torch.cumsum``'s times beside the memory bound;
+3. the hand-written kernels. ``multiply_prefix_sum`` (float64 prefix of a
+   float32 product; the TPU kernel's literal counterpart, on no path)
+   against its plain PyTorch version and a per-tile float64 reference, at
+   the main path's nnz and at a ragged size, with and without values, and
+   in float64; its bit-for-bit determinism; its, the plain version's and
+   ``torch.cumsum``'s times beside the memory bound. Then, on the main
+   path's view, ``csc_column_sums`` (the path's ``X^T d`` in one pass):
+   ``csc_transpose_apply_kernel`` against a float64 reference on
+   all-positive ``d``; the kernel and its plain version within the
+   per-column gate (one float32 ulp of the float64 column sum ``|ref_j|``
+   plus ``1e-12 * sum_j |x|``), two runs bit-identical, empty columns 0;
+   its, the plain version's, the previous route's (the torch gather,
+   ``multiply_prefix_sum`` and ``blocked_boundary_combine``, in turns with
+   the kernel) and cuSPARSE's SpMV times beside its bound; one call adds
+   at most 32 MB of device memory above its inputs; one column of 2^24
+   nonzeros (8,192 ranges) within the gate; a refused launch raises and
+   is not a device loss. Phases 9, 10 and 14 check and time it the same
+   way at the GLM driver's shape, at an out-of-core chunk's, at the
+   path's float64 with-values view and at a streamed chunk's;
 4. a small fit on the card against the same fit in float64 on the CPU;
 5. the main path at full width: a Criteo-shaped sparse logistic regression
    (n=2^21 rows, d=2^18 features, k=39 implicit-ones nonzeros per row,
@@ -53,7 +65,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    within 1e-3 relative L2 of the plain ``"csc"`` fit of the same batch;
    ``best/``, reloaded by ``load_game_model``, scores the validation rows
    exactly as the run did; the best validation AUC is above 0.6. The
-   kernel's with-values time at this path's nnz is taken beside its bound.
+   kernel is checked and timed at this path's view and at an out-of-core
+   chunk's (its first 2^14 rows).
 
 10. the screened regularization path (``optimize.path.PathSolver``) on the
     main path's rows and columns: elastic net (alpha 0.9), 20 lambdas
@@ -68,8 +81,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     the kernel's full and restricted gradients at the last restricted
     solution equal to the plain ``"csc"`` ones (rel L2 1e-6 in float32,
     1e-10 in float64). In float64 also: the kernel's float64 with-values
-    variant (the restricted solves') against its plain version at the
-    path's nnz (and its times beside the bound), the screened support
+    variant (the restricted solves') checked and timed on the main view
+    with float64 values, the screened support
     identical to the unscreened one and ``w`` within 1e-3 relative L2;
 11. the random-effect bucket solve at ``scripts/bench_game.py``'s chip
     shape (100,000 entities x 64 rows x 32 local dims, 8 nonzeros per row,
@@ -115,17 +128,17 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     (margin, 20 iterations), TRON (10) and OWL-QN (l1 = 10, 20) fits
     through ``"csc_kernel"`` each within 1e-3 relative L2 of the same fit
     through plain ``"csc"`` (the in-memory gate of phases 5-7; it prints
-    whether the two are bit-identical: the kernel and ``torch.cumsum`` sum
-    a tile's float64 prefix in different orders, which shows where a
-    prefix is inexact); (c) L-BFGS at depth 0 equal to depth 2 bit for
+    whether the two are bit-identical: the kernel sums each column in
+    float64, ``"csc"`` differences float64 tile prefixes, so a column sum
+    can round to another float32); (c) L-BFGS at depth 0 equal to depth 2 bit for
     bit; (d) kernel launches = 32 x the fit's gradient, Hessian-vector and
     diagonal passes; (e) at n = 2^15, d = 2^14, the streamed and the
     in-memory L-BFGS, both 100 iterations at tolerance 0 in float32 (the
     float32 floor), within 1e-3 relative L2 of ``w``. It prints each fit's
     seconds and seconds per pass, ``StreamStats``, the host-to-device rate,
-    host reads per pass, and per chunk the kernel's, the plain version's,
-    ``torch.cumsum``'s, the CSC sort's, the boundary combine's and a pinned
-    copy's ms beside the chunk's bound (2,555,904 nonzeros x 12 B);
+    host reads per pass, and per chunk the kernel checked and timed on
+    the first chunk's view (2,555,904 nonzeros) as in phase 3, the CSC
+    sort's and a pinned copy's ms;
 15. the GLM driver out of core, run inside phase 9's temporary directory
     on its files: lambda 1.0, 200 iterations at the driver's default
     tolerance 1e-7 (the streamed and the in-memory L-BFGS search their
@@ -135,9 +148,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     warm run's model files equal the cold run's byte for byte; the
     out-of-core ``w`` within 1e-5 relative L2 of the ``--streaming`` one;
     every streamed run's AUC within 1e-3 of the in-memory run's, and
-    every run launches the kernel. It prints each stage's seconds,
-    the peak-RSS growth beside the ring's bound, and the with-values
-    kernel per chunk (655,360 nonzeros x 16 B);
+    every run launches the kernel. It prints each stage's seconds and
+    the peak-RSS growth beside the ring's bound;
 16. GAME with the fixed coordinate streamed, run after phase 13: phase
     12's data and coordinates, the fixed coordinate in chunks of 2^15 rows,
     one sweep through ``GameEstimator.fit`` sharing phase 12's
@@ -213,19 +225,23 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     (a real, non-sticky ``cudaErrorInvalidConfiguration``) must not
     satisfy it, and the card must go on working.
 
-Each fit's launch count is set to 0 just before it and read just after
-(for phases 9, 13 and 15: before and after each driver run; for phases 10
-and 12: before and after each of the four walks and the estimator's fit;
-in phases 17 and 18, in each rank's own process).
+Each fit's launch count (``csc_column_sums.launches``) is set to 0 just
+before it and read just after (for phases 9, 13 and 15: before and after
+each driver run; for phases 10 and 12: before and after each of the four
+walks and the estimator's fit; in phases 17 and 18, in each rank's own
+process). ``multiply_prefix_sum`` must not launch on any path: after
+phase 3 its count may move only by the timings that call it by name, and
+each rank of phases 17 and 18 ends with a count of 0.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
-gives them, a ``{"kernels": [...]}`` JSON object, and
+gives them, a ``{"kernels": [...]}`` JSON object (both kernels), and
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -261,6 +277,17 @@ PATH_ITERS = 200  # per float64 solve, tolerance 0 (see phase_path)
 PATH_F64_LAMBDAS = 6
 PATH_F32_ITERS, PATH_F32_TOL = 100, 1e-7  # the GLM driver's defaults
 TOL_SCAN_F64 = 1e-12  # the float64 kernel: |err_i| <= this * cumsum|x|
+# csc_column_sums: |err_j| <= TOL_COLUMN * sum_j |x| (+ one float32 ulp of
+# |ref_j| for float32 outputs); one main-path call adds at most
+# COLUMN_MEM_GATE bytes of device memory; the heavy-column case puts
+# HEAVY_NNZ more nonzeros in one column of HEAVY_DIM than the spread ones
+TOL_COLUMN = 1e-12
+COLUMN_MEM_GATE = 32_000_000
+HEAVY_NNZ, HEAVY_DIM = 1 << 24, 1 << 18
+# multiply_prefix_sum launches made by name (checks and timings); every
+# other launch of it after phase 3 would be a path's, and fails the run
+EXPLICIT_MPS = [0]
+SLEEP_CYCLES = 200_000_000  # about 0.1 s of the card's clock (device_ms)
 TOL_GRAD = {torch.float32: 1e-6, torch.float64: 1e-10}  # rel L2 of a
 # gradient through the kernel against the plain "csc" path, same inputs
 # phase 11, the random-effect solve at scripts/bench_game.py's chip shape
@@ -424,6 +451,262 @@ def check_apply(csc, n_rows, gen, dev):
           f"err {rel:.3e} (tol {TOL_APPLY})")
 
 
+def column_reference(csc, d):
+    """The float64 column sums ``ref`` of the exact products and of their
+    absolute values (the error scale ``sum_j |x|``)."""
+    x = d.double()[csc.rows]
+    if csc.values is not None:
+        x = x * csc.values.double()
+    lengths = torch.diff(csc.col_starts.long())
+    return tuple(torch.segment_reduce(v, "sum", lengths=lengths, unsafe=True)
+                 for v in (x, x.abs()))
+
+
+def column_tolerance(ref, scale, dtype):
+    """The per-column gate: ``TOL_COLUMN * sum_j |x|``, plus one float32
+    ulp of ``|ref|`` for float32 outputs (the one rounding)."""
+    tol = TOL_COLUMN * scale
+    if dtype == torch.float32:
+        _, e = torch.frexp(ref.abs())
+        tol = tol + torch.where(ref == 0, 0.0,
+                                torch.ldexp(torch.ones_like(ref), e - 24))
+    return tol
+
+
+def check_column_sums(label, csc, d):
+    """csc_column_sums and its plain version against the float64 column
+    sums at the per-column gate; two kernel runs bit-identical and equal
+    to the plain version run on the CPU (the same order of sums) bit for
+    bit; empty columns exactly 0. Returns the kernel's max abs error."""
+    from photon_ml_tpu_torch.ops.kernels import (
+        csc_column_sums, csc_column_sums_plain,
+    )
+    from photon_ml_tpu_torch.types import CSCTranspose
+
+    got = csc_column_sums(csc, d)
+    again = csc_column_sums(csc, d)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"csc_column_sums {label}: two runs differ")
+    host = csc_column_sums_plain(CSCTranspose(
+        None if csc.values is None else csc.values.cpu(), csc.rows.cpu(),
+        csc.col_starts.cpu()), d.cpu())
+    if not torch.equal(got.cpu(), host):
+        raise RuntimeError(f"csc_column_sums {label}: not the CPU plain "
+                           "version's bits")
+    ref, scale = column_reference(csc, d)
+    tol = column_tolerance(ref, scale, d.dtype)
+    errs = {}
+    for name, out in (("kernel", got), ("plain", csc_column_sums_plain(csc,
+                                                                       d))):
+        err = (out.double() - ref).abs()
+        bad = int((err > tol).sum())
+        if bad or out.shape != ref.shape or out.dtype != d.dtype:
+            raise RuntimeError(
+                f"csc_column_sums {label} {name}: {bad} columns beyond the "
+                f"gate, max err {float(err.max()):.3e}, shape "
+                f"{tuple(out.shape)} {out.dtype}")
+        errs[name] = float(err.max()) if err.numel() else 0.0
+    empty = torch.diff(csc.col_starts.long()) == 0
+    if not bool((got[empty] == 0).all()):
+        raise RuntimeError(f"csc_column_sums {label}: an empty column is "
+                           "not 0")
+    print(f"csc_column_sums {label} (nnz={csc.rows.shape[0]}, "
+          f"dim={ref.shape[0]}, {d.dtype}, "
+          f"{'values' if csc.values is not None else 'implicit ones'}): max "
+          f"abs err kernel {errs['kernel']:.3e}, plain {errs['plain']:.3e} "
+          f"(gate {TOL_COLUMN} * sum_j|x|"
+          f"{' + one f32 ulp' if d.dtype == torch.float32 else ''}); two "
+          "runs bit-identical and equal to the CPU plain version; empty "
+          "columns 0")
+    return errs["kernel"]
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def device_ms(fn, reps: int):
+    """Mean device milliseconds per ``fn()`` call with no wait for the
+    host in between: the card sleeps (``torch.cuda._sleep``) while the
+    host queues ``reps`` calls, and CUDA events time them once the sleep
+    ends. None (not measured) if the host took longer to queue them than
+    the card slept."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    marks[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    marks[2].record()
+    torch.cuda.synchronize()
+    if queued_ms >= marks[0].elapsed_time(marks[1]):
+        return None
+    return marks[1].elapsed_time(marks[2]) / reps
+
+
+def time_column_sums(label, csc, d, peaks, smi):
+    """csc_column_sums at a path's shape beside its plain version, the
+    previous route in turns (the torch gather, multiply_prefix_sum and
+    blocked_boundary_combine, also each alone), cuSPARSE's SpMV (a
+    yardstick: the port never calls it) and the bound for the same
+    work."""
+    from photon_ml_tpu_torch.ops.kernels import (
+        TILE, csc_column_sums, csc_column_sums_plain, multiply_prefix_sum,
+    )
+    from photon_ml_tpu_torch.types import blocked_boundary_combine
+
+    def previous():
+        local, totals, _ = multiply_prefix_sum(csc.values, d[csc.rows])
+        return blocked_boundary_combine(local, totals, csc.col_starts,
+                                        TILE).to(d.dtype)
+
+    nnz, dim, n = csc.rows.shape[0], csc.col_starts.shape[0] - 1, d.shape[0]
+    ones = (csc.values if csc.values is not None
+            else torch.ones(nnz, dtype=d.dtype, device=d.device))
+    spm = torch.sparse_csr_tensor(csc.col_starts, csc.rows, ones,
+                                  size=(dim, n), check_invariants=False)
+    before = multiply_prefix_sum.launches
+    d_sorted = d[csc.rows]
+    local, totals, _ = multiply_prefix_sum(csc.values, d_sorted)
+    reps = 20
+    kernel = [cuda_ms(lambda: csc_column_sums(csc, d), reps)]
+    prev = [cuda_ms(previous, reps)]
+    library_ms = cuda_ms(lambda: spm @ d, reps)
+    plain_ms = cuda_ms(lambda: csc_column_sums_plain(csc, d), reps)
+    prev.append(cuda_ms(previous, reps))
+    kernel.append(cuda_ms(lambda: csc_column_sums(csc, d), reps))
+    gather_ms = cuda_ms(lambda: d[csc.rows], reps)
+    mps_ms = cuda_ms(lambda: multiply_prefix_sum(csc.values, d_sorted), reps)
+    combine_ms = cuda_ms(lambda: blocked_boundary_combine(
+        local, totals, csc.col_starts, TILE), reps)
+    # the same three on the device's own clock
+    dev_ms = {name: device_ms(fn, reps) for name, fn in (
+        ("kernel", lambda: csc_column_sums(csc, d)),
+        ("previous", previous), ("library", lambda: spm @ d))}
+    EXPLICIT_MPS[0] += multiply_prefix_sum.launches - before
+    # each input read once, each output written once; one add (and one
+    # multiply) per nonzero in float64
+    nbytes = (4 * nnz + d.element_size() * (n + dim) + 4 * (dim + 1)
+              + (0 if csc.values is None else d.element_size() * nnz))
+    ops = (1 if csc.values is None else 2) * nnz
+    bw, _, f64_rate = peaks
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / f64_rate * 1e3
+    t = {"nnz": nnz, "dim": dim, "bytes": nbytes,
+         "kernel_ms": sum(kernel) / 2, "kernel_ms_runs": kernel,
+         "plain_ms": plain_ms, "previous_ms": sum(prev) / 2,
+         "previous_ms_runs": prev, "gather_ms": gather_ms, "mps_ms": mps_ms,
+         "combine_ms": combine_ms, "library_ms": library_ms,
+         "device_ms": dev_ms["kernel"],
+         "previous_device_ms": dev_ms["previous"],
+         "library_device_ms": dev_ms["library"],
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"csc_column_sums {label} (nnz={nnz}, {d.dtype}, "
+          f"{'values' if csc.values is not None else 'implicit ones'}): "
+          f"kernel {kernel[0]:.4f} / {kernel[1]:.4f} ms, previous route "
+          f"{prev[0]:.4f} / {prev[1]:.4f} ms (gather {gather_ms:.4f}, "
+          f"multiply_prefix_sum {mps_ms:.4f}, combine {combine_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, cuSPARSE SpMV {library_ms:.4f} ms; "
+          f"device time per call: kernel {_ms(dev_ms['kernel'])}, "
+          f"previous route {_ms(dev_ms['previous'])}, cuSPARSE "
+          f"{_ms(dev_ms['library'])}; bound {t['bound_ms']:.5f} ms "
+          f"({nbytes / 1e6:.2f} MB by {t['bound_by']}) on {smi}")
+    return t
+
+
+def column_sums_at(label, csc, n_rows, gen, dev, peaks, smi,
+                   dtype=torch.float32):
+    """check_column_sums then time_column_sums on a random ``d`` of
+    ``n_rows``; returns the timing with the kernel's max error."""
+    d = torch.randn(n_rows, generator=gen, device=dev, dtype=dtype)
+    err = check_column_sums(label, csc, d)
+    return dict(time_column_sums(label, csc, d, peaks, smi),
+                max_abs_err=err)
+
+
+def check_column_extras(csc, gen, dev, smi):
+    """Phase 3's further checks of csc_column_sums: one main-path call adds
+    at most COLUMN_MEM_GATE bytes above its inputs (the previous route's
+    growth is printed beside it); a column that spans thousands of ranges;
+    a refused launch raises the AcceleratorError form of torch's own CUDA
+    checks and is not a device loss."""
+    from photon_ml_tpu_torch.ops import kernel_build, kernels
+    from photon_ml_tpu_torch.ops.kernels import (
+        TILE, csc_column_sums, multiply_prefix_sum,
+    )
+    from photon_ml_tpu_torch.types import (
+        CSCTranspose, blocked_boundary_combine,
+    )
+    from photon_ml_tpu_torch.utils import is_device_loss
+
+    d = torch.randn(N_ROWS, generator=gen, device=dev)
+    grown = {}
+    for name, fn in (
+            ("csc_column_sums", lambda: csc_column_sums(csc, d)),
+            ("previous route", lambda: blocked_boundary_combine(
+                *multiply_prefix_sum(None, d[csc.rows])[:2],
+                csc.col_starts, TILE).to(d.dtype))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        grown[name] = torch.cuda.max_memory_allocated() - base
+        del out
+    print(f"device memory added by one main-path call: csc_column_sums "
+          f"{grown['csc_column_sums'] / 1e6:.3f} MB (gate "
+          f"{COLUMN_MEM_GATE / 1e6:.1f} MB), the previous route "
+          f"{grown['previous route'] / 1e6:.1f} MB")
+    if grown["csc_column_sums"] > COLUMN_MEM_GATE:
+        raise RuntimeError("csc_column_sums allocated "
+                           f"{grown['csc_column_sums']} bytes")
+
+    # one heavy column: HEAVY_NNZ nonzeros in column 7, the rest spread
+    lengths = torch.bincount(torch.randint(
+        0, HEAVY_DIM, (HEAVY_NNZ,), generator=gen, device=dev),
+        minlength=HEAVY_DIM)
+    lengths[7] += HEAVY_NNZ
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(lengths, 0)]).to(torch.int32)
+    heavy = CSCTranspose(None, torch.randint(
+        0, N_ROWS, (int(starts[-1]),), generator=gen, device=dev,
+        dtype=torch.int32), starts)
+    err = check_column_sums("one heavy column", heavy, torch.randn(
+        N_ROWS, generator=gen, device=dev))
+    ms = cuda_ms(lambda: csc_column_sums(heavy, d), 10)
+    print(f"  one heavy column: {int(lengths[7])} nonzeros in one column "
+          f"({int(lengths[7]) // 2048} ranges), kernel {ms:.4f} ms on {smi}")
+
+    lib = kernel_build.load_library()
+    out = torch.empty(DIM, device=dev)
+    scratch = torch.empty(3, device=dev, dtype=torch.float64)
+    launches = csc_column_sums.launches
+    err_code = lib.photon_csc_column_sums_f32(
+        None, csc.rows.data_ptr(), csc.col_starts.data_ptr(), d.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr(), csc.rows.shape[0], DIM, 0,
+        torch.cuda.current_stream().cuda_stream)
+    refused = kernels.launch_error(lib, err_code, "csc_column_sums on an "
+                                                  "empty grid")
+    works = float(torch.ones(4, device=dev).sum()) == 4.0
+    print(f"  a refused launch (empty grid): code {err_code}, "
+          f"{type(refused).__name__}: {str(refused).splitlines()[0]}; "
+          f"device loss {is_device_loss(refused)}; the card works after: "
+          f"{works}")
+    if not (err_code != 0
+            and isinstance(refused, getattr(torch, "AcceleratorError",
+                                            RuntimeError))
+            and not is_device_loss(refused) and works
+            and csc_column_sums.launches == launches):
+        raise RuntimeError("csc_column_sums' refused launch was not reported")
+    return err
+
+
 def make_data(n_rows, dim, k, gen, dev):
     """Criteo-shaped implicit-ones data drawn on the card: labels are
     Bernoulli(sigmoid(x . w_true)) with w_true ~ N(0, 0.5^2)."""
@@ -470,14 +753,14 @@ def check_small_fit(gen, dev):
 def run_counted(fn):
     """Run the fit ``fn()`` with the kernel's launch count set to 0 just
     before and read just after; returns (result, seconds, launches)."""
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     torch.cuda.synchronize()
-    multiply_prefix_sum.launches = 0
+    csc_column_sums.launches = 0
     t0 = time.perf_counter()
     res = fn()
     float(res.value)  # scalar fetch: the fit has run
-    return res, time.perf_counter() - t0, multiply_prefix_sum.launches
+    return res, time.perf_counter() - t0, csc_column_sums.launches
 
 
 def check_descent(name, res, dim, f0):
@@ -741,16 +1024,16 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
     """The GLM driver end to end on a written Avro dataset (phase 9), then
     ``then(root, train_dir, val_dir)`` (phase 15) on the same files
     before they are removed. Returns (kernel launches in the driver's run,
-    the kernel's with-values timing at this path's nnz, what ``then``
-    returned)."""
+    the kernel's with-values timings at this path's shape and at an
+    out-of-core chunk's, what ``then`` returned)."""
     import os
     import tempfile
 
     from photon_ml_tpu_torch.cli import glm_driver
     from photon_ml_tpu_torch.io.hashing import HashingIndexMap
     from photon_ml_tpu_torch.io.model_io import load_game_model
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
-    from photon_ml_tpu_torch.types import margins
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
+    from photon_ml_tpu_torch.types import build_csc_transpose, margins
 
     n_train, n_val = n_files * file_rows, n_val_files * file_rows
     with tempfile.TemporaryDirectory(prefix="chip_smoke_glm_") as root:
@@ -775,7 +1058,7 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
 
         def counted_fit(objective, batch, w0, **kw):
             torch.cuda.synchronize()
-            before = multiply_prefix_sum.launches
+            before = csc_column_sums.launches
             from_zero = bool((w0 == 0).all())
             t_fit = time.perf_counter()
             res = real_fit(objective, batch, w0, **kw)
@@ -783,7 +1066,7 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
             fits.append({"objective": objective, "batch": batch, "kw": kw,
                          "res": res, "from_zero": from_zero,
                          "seconds": time.perf_counter() - t_fit,
-                         "launches": multiply_prefix_sum.launches - before})
+                         "launches": csc_column_sums.launches - before})
             return res
 
         glm_driver.fit_shard = counted_fit
@@ -791,12 +1074,12 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
             lambda name: _RecordingEvaluator(real_get(name), scored)
         try:
             torch.cuda.synchronize()
-            multiply_prefix_sum.launches = 0
+            csc_column_sums.launches = 0
             t0 = time.perf_counter()
             rc = glm_driver.main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = multiply_prefix_sum.launches
+            launches = csc_column_sums.launches
         finally:
             glm_driver.fit_shard = real_fit
             glm_driver.get_evaluator = real_get
@@ -864,15 +1147,19 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
         after = None
         if then is not None:
             after = then(root, train_dir, val_dir)
-    nnz = int(batch.features.indices.numel())
-    timing = time_scan(nnz, gen, dev, peaks, with_values=True)
-    print(f"multiply_prefix_sum at the driver's nnz={nnz} (explicit values, "
-          f"f32): kernel {timing['kernel_ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, torch.cumsum "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-          f"({timing['bytes'] / 1e6:.1f} MB by {timing['bound_by']}) on "
-          f"{smi}")
-    return launches, dict(timing, nnz=nnz), after
+    # the kernel at this path's shape, and at an out-of-core chunk's (phase
+    # 15's chunks of OOC_CHUNK_ROWS rows of the same files)
+    feats = batch.features
+    timing = column_sums_at(
+        "glm driver", build_csc_transpose(feats.indices, feats.values,
+                                          feats.dim, with_cols=False),
+        batch.num_examples, gen, dev, peaks, smi)
+    chunk = feats.slice_rows(0, OOC_CHUNK_ROWS)
+    ooc_timing = column_sums_at(
+        "out-of-core driver chunk", build_csc_transpose(
+            chunk.indices, chunk.values, chunk.dim, with_cols=False),
+        OOC_CHUNK_ROWS, gen, dev, peaks, smi)
+    return launches, timing, ooc_timing, after
 
 
 def path_walks(obj, reg, batch, csc, config, lambdas=PATH_LAMBDAS):
@@ -882,7 +1169,7 @@ def path_walks(obj, reg, batch, csc, config, lambdas=PATH_LAMBDAS):
     and read just after.
     Returns (grid, {rule: (solver, [(result, stats)], seconds,
     launches)})."""
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
     from photon_ml_tpu_torch.optimize import PathConfig
     from photon_ml_tpu_torch.optimize.path import PathSolver
 
@@ -896,12 +1183,12 @@ def path_walks(obj, reg, batch, csc, config, lambdas=PATH_LAMBDAS):
             grid = np.geomspace(lmax, PATH_SPAN * lmax,
                                 PATH_LAMBDAS)[:lambdas]
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t0 = time.perf_counter()
         out = [solver.solve(float(lam)) for lam in grid]
         torch.cuda.synchronize()
         walks[rule] = (solver, out, time.perf_counter() - t0,
-                       multiply_prefix_sum.launches)
+                       csc_column_sums.launches)
         if walks[rule][3] < 1:
             raise RuntimeError(f"the path walk screen={rule} did not launch "
                                "the kernel")
@@ -1055,17 +1342,13 @@ def phase_path(obj, batch, csc, smi, gen, dev, peaks):
     # coordinate whose KKT margin is tiny is zero in one walk and tiny in
     # the other unless both solves get that close. The restricted solves
     # run the kernel's float64 with-values variant: it is held to the plain
-    # version first, at the path's nnz.
-    nnz = N_ROWS * K
-    err64 = check_scan(nnz, True, gen, dev, torch.float64)
-    timing64 = time_scan(nnz, gen, dev, peaks, with_values=True,
-                         dtype=torch.float64)
-    print(f"multiply_prefix_sum at the path's nnz={nnz} (explicit values, "
-          f"f64, the restricted solves' variant): kernel "
-          f"{timing64['kernel_ms']:.4f} ms, plain {timing64['plain_ms']:.4f} "
-          f"ms, torch.cumsum {timing64['library_ms']:.4f} ms, bound "
-          f"{timing64['bound_ms']:.4f} ms ({timing64['bytes'] / 1e6:.1f} MB "
-          f"by {timing64['bound_by']}) on {smi}")
+    # version first, at the path's shape (the main view with float64
+    # values).
+    view64 = dataclasses.replace(csc, values=torch.randn(
+        csc.rows.shape[0], generator=gen, device=dev, dtype=torch.float64))
+    timing64 = column_sums_at("path float64", view64, N_ROWS, gen, dev,
+                              peaks, smi, dtype=torch.float64)
+    del view64
     batch64 = LabeledBatch(
         SparseFeatures(batch.features.indices, None, batch.features.dim),
         batch.labels.double(), batch.offsets.double(),
@@ -1090,7 +1373,7 @@ def phase_path(obj, batch, csc, smi, gen, dev, peaks):
         if not rel <= TOL_FIT:
             raise RuntimeError(f"path float64 lambda {lam}: rel L2 "
                                f"{rel:.3e} > {TOL_FIT}")
-    return launches, dict(timing64, nnz=nnz, max_abs_err=err64)
+    return launches, timing64
 
 
 def re_bucket(E, N, D, kk, gen, dev, dtype=torch.float32):
@@ -1231,7 +1514,7 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
     AUC)."""
     from photon_ml_tpu_torch.estimators import GameEstimator, GameTransformer
     from photon_ml_tpu_torch.game import descent
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     t0 = time.perf_counter()
     train, val = make_game_data(n, n_val, SEED)
@@ -1258,12 +1541,12 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
 
     def counted_fit(self, offsets_full, opt_config=None):
         torch.cuda.synchronize()
-        before = multiply_prefix_sum.launches
+        before = csc_column_sums.launches
         t_fit = time.perf_counter()
         res = real_fit(self, offsets_full, opt_config)
         float(res.value)
         fixed_fits.append((time.perf_counter() - t_fit,
-                           multiply_prefix_sum.launches - before,
+                           csc_column_sums.launches - before,
                            res.iterations))
         return res
 
@@ -1275,7 +1558,7 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
         est = GameEstimator(task="logistic", n_iterations=GAME_SWEEPS,
                             evaluators=["auc"], device=dev)
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t0 = time.perf_counter()
         result = est.fit(
             train, val, [configs], dataset_cache=cache,
@@ -1283,7 +1566,7 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
                 it, model["fixed"].model.coefficients.means.clone()))[0]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
     finally:
         descent._FixedState.fit = real_fit
         descent.get_evaluator = real_get
@@ -1339,7 +1622,7 @@ def phase_game_stream(ctx, dev, smi):
     import dataclasses
 
     from photon_ml_tpu_torch.estimators import GameEstimator
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     configs = game_configs()
     configs[0] = dataclasses.replace(configs[0], streaming=True,
@@ -1347,13 +1630,13 @@ def phase_game_stream(ctx, dev, smi):
     est = GameEstimator(task="logistic", n_iterations=1, evaluators=["auc"],
                         device=dev)
     torch.cuda.synchronize()
-    multiply_prefix_sum.launches = 0
+    csc_column_sums.launches = 0
     t0 = time.perf_counter()
     result = est.fit(ctx["train"], ctx["val"], [configs],
                      dataset_cache=ctx["cache"])[0]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = multiply_prefix_sum.launches
+    launches = csc_column_sums.launches
     auc = result.history[-1]["auc"]
     fixed = next(r for r in result.history if r["coordinate"] == "fixed")
     st = fixed["stream"]
@@ -1446,14 +1729,13 @@ def game_driver_coordinates():
     return json.dumps(coords)
 
 
-def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
+def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
                       file_rows=GAME_FILE_ROWS):
     """Phase 13: the GAME command-line path at phase 12's shape, written
     as Avro: the feature indexing driver, the training driver (3 sweeps, 2
     Bayesian tuning rounds of the fixed coordinate's reg weight) and the
-    scoring driver on the saved ``best`` model. Returns (kernel launches in
-    the training driver's run, the kernel's with-values timing at the fixed
-    coordinate's nnz)."""
+    scoring driver on the saved ``best`` model. Returns the kernel's
+    launches in the training driver's run."""
     import os
     import tempfile
 
@@ -1462,7 +1744,7 @@ def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
     )
     from photon_ml_tpu_torch.game import descent
     from photon_ml_tpu_torch.io.avro import iter_avro_records
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     def read_log(out):
         with open(os.path.join(out, "photon.log.jsonl")) as f:
@@ -1504,7 +1786,7 @@ def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
 
         def counted_fit(self, offsets_full, opt_config=None):
             torch.cuda.synchronize()
-            before = multiply_prefix_sum.launches
+            before = csc_column_sums.launches
             if not first:
                 first.update(state=self, offsets=offsets_full.clone(),
                              opt_config=opt_config, from_zero=self.w is None)
@@ -1512,7 +1794,7 @@ def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
             res = real_fit(self, offsets_full, opt_config)
             float(res.value)
             fixed_fits.append((time.perf_counter() - t_fit,
-                               multiply_prefix_sum.launches - before,
+                               csc_column_sums.launches - before,
                                res.iterations))
             first.setdefault("res", res)
             return res
@@ -1540,12 +1822,12 @@ def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
         game_training_driver.GameEstimator = RecordingEstimator
         try:
             torch.cuda.synchronize()
-            multiply_prefix_sum.launches = 0
+            csc_column_sums.launches = 0
             t0 = time.perf_counter()
             rc = game_training_driver.main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = multiply_prefix_sum.launches
+            launches = csc_column_sums.launches
         finally:
             descent._FixedState.fit = real_fit
             descent.CoordinateDescent._build_random_states = real_build
@@ -1630,22 +1912,14 @@ def phase_game_driver(dev, smi, peaks, gen, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
     if not abs(auc - best_auc) <= TOL_DRIVER_AUC:
         raise RuntimeError(f"the scoring driver's auc {auc} differs from "
                            f"the training run's {best_auc}")
-    nnz = int(read["num_train"]) * (K + 1)
-    timing = time_scan(nnz, gen, dev, peaks, with_values=True)
-    print(f"multiply_prefix_sum at the game driver's nnz={nnz} (explicit "
-          f"values, f32): kernel {timing['kernel_ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, torch.cumsum "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-          f"({timing['bytes'] / 1e6:.1f} MB by {timing['bound_by']}) on "
-          f"{smi}")
-    return launches, dict(timing, nnz=nnz)
+    return launches
 
 
 def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
     """Phase 14: the streamed main path at full width. Returns (kernel
     launches by fit, the per-chunk timing entry)."""
     from photon_ml_tpu_torch.game.data import HostSparse
-    from photon_ml_tpu_torch.ops.kernels import TILE, multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
     from photon_ml_tpu_torch.optimize.common import OptimizerConfig
     from photon_ml_tpu_torch.parallel.data_parallel import (
         fit_distributed, make_csc_path,
@@ -1655,8 +1929,7 @@ def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
         streaming_value_and_grad,
     )
     from photon_ml_tpu_torch.types import (
-        SparseFeatures, blocked_boundary_combine, build_csc_transpose,
-        make_batch,
+        SparseFeatures, build_csc_transpose, make_batch,
     )
 
     t0 = time.perf_counter()
@@ -1678,12 +1951,12 @@ def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
     for label, w in (("w = 0", torch.zeros(DIM, device=dev)),
                      ("phase 5's w", w5)):
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t0 = time.perf_counter()
         f_s, g_s = fg(w, 1.0)
         f_s = float(f_s)
         sec = time.perf_counter() - t0
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
         f_m, g_m = fg_mem(w, batch, csc, 1.0)
         if g0_norm is None:
             g0_norm = float(g_m.norm())
@@ -1736,9 +2009,9 @@ def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
             raise RuntimeError(f"{name}: {launches} launches, not "
                                f"{len(chunks)} x {st['kernel_passes']}")
         # (b) the kernel fit against the plain "csc" fit, as phases 5-7
-        # hold the in-memory fits: the two scan each tile's float64 prefix
-        # in different orders, so where a prefix is inexact a column sum
-        # can round to another float32
+        # hold the in-memory fits: the kernel sums each column in float64,
+        # "csc" differences float64 tile prefixes, so a column sum can
+        # round to another float32
         t0 = time.perf_counter()
         plain = run("csc")
         float(plain.value)
@@ -1785,29 +2058,22 @@ def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
     if not rel <= TOL_FIT:
         raise RuntimeError(f"streamed and in-memory fits disagree: {rel:.3e}")
 
-    # per chunk: the kernel, the CSC sort and the boundary combine
-    timing = time_scan(nnz, gen, dev, peaks)
+    # per chunk: the kernel (and the previous route), the CSC sort and the
+    # pinned copy
     idx_c = torch.as_tensor(chunks[0].indices, device=dev)
     sort_ms = cuda_ms(
         lambda: build_csc_transpose(idx_c, None, DIM, with_cols=False), 20)
-    view = build_csc_transpose(idx_c, None, DIM, with_cols=False)
-    d = torch.randn(STREAM_CHUNK_ROWS, generator=gen, device=dev)
-    local, totals, _ = multiply_prefix_sum(None, d[view.rows])
-    combine_ms = cuda_ms(
-        lambda: blocked_boundary_combine(local, totals, view.col_starts,
-                                         TILE), 20)
+    timing = column_sums_at(
+        "streamed chunk", build_csc_transpose(idx_c, None, DIM,
+                                              with_cols=False),
+        STREAM_CHUNK_ROWS, gen, dev, peaks, smi)
     pinned = torch.empty(chunks[0].indices.shape, dtype=torch.int32,
                          pin_memory=True)
     h2d_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 20)
-    print(f"per chunk (nnz={nnz}): kernel {timing['kernel_ms']:.4f} ms, "
-          f"plain {timing['plain_ms']:.4f} ms, torch.cumsum "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.5f} "
-          f"ms ({timing['bytes'] / 1e6:.2f} MB by {timing['bound_by']}); "
-          f"CSC sort {sort_ms:.4f} ms, boundary combine {combine_ms:.4f} ms; "
-          f"pinned indices copy {h2d_ms:.4f} ms "
+    print(f"per chunk (nnz={nnz}): CSC sort {sort_ms:.4f} ms, pinned "
+          f"indices copy {h2d_ms:.4f} ms "
           f"({pinned.nbytes / 1e6 / h2d_ms:.2f} GB/s); on {smi}")
-    return launches_by_fit, dict(timing, nnz=nnz, sort_ms=sort_ms,
-                                 combine_ms=combine_ms, h2d_ms=h2d_ms,
+    return launches_by_fit, dict(timing, sort_ms=sort_ms, h2d_ms=h2d_ms,
                                  lbfgs_res=res2)
 
 
@@ -1842,17 +2108,17 @@ class _RssPeak:
         self._t.join(timeout=5)
 
 
-def phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks):
+def phase_glm_ooc(root, train_dir, val_dir, dev, smi):
     """Phase 15: the GLM driver in memory, with --streaming, then with
     --out-of-core through a chunk cache (cold, then warm), on phase 9's
-    files. Returns (the cold out-of-core run's kernel launches, the
-    per-chunk timing entry)."""
+    files. Returns the cold out-of-core run's kernel launches (phase 9
+    times the kernel at a chunk's shape)."""
     import filecmp
     import os
 
     from photon_ml_tpu_torch.cli import glm_driver
     from photon_ml_tpu_torch.io.model_io import load_game_model
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     cache = os.path.join(root, "chunk_cache")
     base = ["--train-data", train_dir, "--validation-data", val_dir,
@@ -1870,13 +2136,13 @@ def phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks):
     for name, flags in runs.items():
         out[name] = os.path.join(root, f"out_{name}")
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t0 = time.perf_counter()
         with _RssPeak() as rss:
             rc = glm_driver.main(base + flags + ["--output-dir", out[name]])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
         if rc != 0:
             raise RuntimeError(f"glm_driver {name} exited with {rc}")
         with open(os.path.join(out[name], "photon.log.jsonl")) as f:
@@ -1924,14 +2190,7 @@ def phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks):
           f"the in-memory run's ({aucs['in_memory']:.6f})")
     if not rel <= TOL_OOC_W:
         raise RuntimeError(f"out-of-core model differs: {rel:.3e}")
-    nnz = OOC_CHUNK_ROWS * (DRIVER_FEATURES + 1)
-    timing = time_scan(nnz, gen, dev, peaks, with_values=True)
-    print(f"per chunk (nnz={nnz}, values): kernel {timing['kernel_ms']:.4f} "
-          f"ms, plain {timing['plain_ms']:.4f} ms, torch.cumsum "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.5f} ms "
-          f"({timing['bytes'] / 1e6:.2f} MB by {timing['bound_by']}); on "
-          f"{smi}")
-    return launches_by_run["ooc_cold"], dict(timing, nnz=nnz)
+    return launches_by_run["ooc_cold"]
 
 
 # -- phase 17: multi-process ---------------------------------------------
@@ -2043,7 +2302,7 @@ def phase_mp_driver(train_dir, val_dir, root, dev, smi):
     import os
 
     from photon_ml_tpu_torch.cli import glm_driver
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     base = ["--train-data", train_dir, "--validation-data", val_dir,
             "--input-format", "avro", "--hash-dim", str(DRIVER_HASH_DIM),
@@ -2058,11 +2317,11 @@ def phase_mp_driver(train_dir, val_dir, root, dev, smi):
     for name, flags in runs.items():
         out[name] = os.path.join(root, f"out_mp_{name}")
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t0 = time.perf_counter()
         rc = glm_driver.main(base + flags + ["--output-dir", out[name]])
         torch.cuda.synchronize()
-        launches[name] = multiply_prefix_sum.launches
+        launches[name] = csc_column_sums.launches
         if rc != 0:
             raise RuntimeError(f"glm_driver {name} exited with {rc}")
         with open(os.path.join(out[name], "photon.log.jsonl")) as f:
@@ -2120,7 +2379,9 @@ def mp_rank(rank: int, root: str) -> int:
     from photon_ml_tpu_torch.estimators import GameEstimator
     from photon_ml_tpu_torch.game.data import HostSparse
     from photon_ml_tpu_torch.ops import kernel_build
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import (
+        csc_column_sums, multiply_prefix_sum,
+    )
     from photon_ml_tpu_torch.ops.objective import make_objective
     from photon_ml_tpu_torch.optimize.common import OptimizerConfig
     from photon_ml_tpu_torch.parallel.data_parallel import (
@@ -2228,10 +2489,10 @@ def mp_rank(rank: int, root: str) -> int:
     est = GameEstimator(task="logistic", n_iterations=1, evaluators=["auc"],
                         mesh=emesh)
     torch.cuda.synchronize()
-    multiply_prefix_sum.launches = 0
+    csc_column_sums.launches = 0
     result = est.fit(train, val, [game_configs()])[0]
     torch.cuda.synchronize()
-    launches = multiply_prefix_sum.launches
+    launches = csc_column_sums.launches
     auc = result.history[-1]["auc"]
     steps = ", ".join(f"{r['coordinate']} {r['seconds']:.3f} s"
                       for r in result.history)
@@ -2243,6 +2504,9 @@ def mp_rank(rank: int, root: str) -> int:
     for name in ("per_user", "per_item"):
         for b, bucket in enumerate(result.model[name].buckets):
             arrays[f"re_{name}_{b}"] = np.asarray(bucket.coefficients)
+    if multiply_prefix_sum.launches:
+        raise RuntimeError(f"rank {rank}: multiply_prefix_sum launched "
+                           f"{multiply_prefix_sum.launches} times on a path")
     dist.destroy_process_group()
     np.savez(os.path.join(root, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
@@ -2413,7 +2677,9 @@ def recovery_rank(rank: int, root: str) -> int:
     from photon_ml_tpu_torch.estimators import GameEstimator
     from photon_ml_tpu_torch.game import descent
     from photon_ml_tpu_torch.ops import kernel_build
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import (
+        csc_column_sums, multiply_prefix_sum,
+    )
     from photon_ml_tpu_torch.parallel import fault_injection
     from photon_ml_tpu_torch.parallel.entity_shard import EntityShardSpec
     from photon_ml_tpu_torch.parallel.recovery import (
@@ -2458,9 +2724,9 @@ def recovery_rank(rank: int, root: str) -> int:
     real_fit, real_changed = descent._FixedState.fit, descent._changed_rows
 
     def counted_fit(self, offsets_full, opt_config=None):
-        before = multiply_prefix_sum.launches
+        before = csc_column_sums.launches
         res = real_fit(self, offsets_full, opt_config)
-        fixed_launches.append(multiply_prefix_sum.launches - before)
+        fixed_launches.append(csc_column_sums.launches - before)
         return res
 
     def counted_changed(new_np, old_np):
@@ -2478,13 +2744,13 @@ def recovery_rank(rank: int, root: str) -> int:
         fixed_launches.clear()
         published.clear()
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t_run = time.perf_counter()
         result = est.fit(train, val, [game_configs()],
                          dataset_cache=cache)[0]
         torch.cuda.synchronize()
         return dict(result=result, seconds=time.perf_counter() - t_run,
-                    launches=multiply_prefix_sum.launches,
+                    launches=csc_column_sums.launches,
                     fixed_launches=list(fixed_launches),
                     published=list(published))
 
@@ -2533,6 +2799,9 @@ def recovery_rank(rank: int, root: str) -> int:
         f"recovery(ies), {st['snapshots']} snapshots in "
         f"{st['snapshot_seconds']:.3f} s, recovery {st['recovery_seconds']:.3f}"
         f" s")
+    if multiply_prefix_sum.launches:
+        raise RuntimeError(f"rank {rank}: multiply_prefix_sum launched "
+                           f"{multiply_prefix_sum.launches} times on a path")
     np.savez(os.path.join(root, f"recovery{rank}.npz"), **arrays)
     dump(f"recovery{rank}.json", out)
 
@@ -2874,7 +3143,7 @@ def phase_recovery_driver(train_dir, val_dir, root, dev, smi):
 
     import photon_ml_tpu_torch
     from photon_ml_tpu_torch.cli import glm_driver
-    from photon_ml_tpu_torch.ops.kernels import multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
 
     def argv(out):
         return ["--train-data", train_dir, "--validation-data", val_dir,
@@ -2888,11 +3157,11 @@ def phase_recovery_driver(train_dir, val_dir, root, dev, smi):
 
     def counted(args):
         torch.cuda.synchronize()
-        multiply_prefix_sum.launches = 0
+        csc_column_sums.launches = 0
         t0 = time.perf_counter()
         rc = glm_driver.main(args)
         torch.cuda.synchronize()
-        return rc, multiply_prefix_sum.launches, time.perf_counter() - t0
+        return rc, csc_column_sums.launches, time.perf_counter() - t0
 
     clean, killed = (os.path.join(root, f"out_recovery_{n}")
                      for n in ("clean", "killed"))
@@ -2951,7 +3220,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from photon_ml_tpu_torch.ops import kernel_build
-    from photon_ml_tpu_torch.ops.kernels import TILE, multiply_prefix_sum
+    from photon_ml_tpu_torch.ops.kernels import (
+        TILE, csc_column_sums, multiply_prefix_sum,
+    )
     from photon_ml_tpu_torch.ops.objective import make_objective
     from photon_ml_tpu_torch.optimize.common import OptimizerConfig
     from photon_ml_tpu_torch.parallel.data_parallel import (
@@ -3005,6 +3276,15 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"build_csc (nnz={nnz_main}): {time.perf_counter() - t0:.3f} s")
     check_apply(csc, N_ROWS, gen, dev)
+    max_err = max(max_err, check_scan(3 * TILE + 17, True, gen, dev,
+                                      torch.float64))
+    col_timing = column_sums_at("main path", csc, N_ROWS, gen, dev, peaks,
+                                smi)
+    col_err = max(col_timing["max_abs_err"],
+                  check_column_extras(csc, gen, dev, smi))
+    # from here on, multiply_prefix_sum runs only where a check or a
+    # timing calls it by name (EXPLICIT_MPS); no path may launch it
+    mps_start, EXPLICIT_MPS[0] = multiply_prefix_sum.launches, 0
 
     w0 = torch.zeros(DIM, device=dev)
     cfg = OptimizerConfig(max_iters=ITERS, tolerance=0.0)
@@ -3015,12 +3295,14 @@ def main() -> int:
 
     fit("csc_kernel", OptimizerConfig(max_iters=2, tolerance=0.0))  # warm-up
     torch.cuda.synchronize()
-    multiply_prefix_sum.launches = 0
+    csc_column_sums.launches = 0
+    mps_before = multiply_prefix_sum.launches
     t0 = time.perf_counter()
     res = fit("csc_kernel")
     value = float(res.value)  # scalar fetch: the fit has run
     elapsed = time.perf_counter() - t0
-    launches = multiply_prefix_sum.launches
+    launches = csc_column_sums.launches
+    mps_launches = multiply_prefix_sum.launches - mps_before
     lh = res.loss_history.cpu()
     f0 = N_ROWS * math.log(2.0)  # the loss at w0 = 0
     print(f"fit csc_kernel: {res.iterations} iterations, {launches} kernel "
@@ -3060,22 +3342,23 @@ def main() -> int:
     phase_stream_launches, stream_timing = phase_stream(
         obj, indices, labels, batch, csc, res.w, smi, gen, dev, peaks)
     launches_by_path.update(phase_stream_launches)
-    launches_by_path["glm_driver"], driver_timing, (
-        (launches_by_path["glm_driver_ooc"], ooc_timing),
-        mp_driver_launches, recovery_driver_launches) = phase_driver(
+    launches_by_path["glm_driver"], driver_timing, ooc_timing, (
+        launches_by_path["glm_driver_ooc"], mp_driver_launches,
+        recovery_driver_launches) = phase_driver(
         dev, smi, peaks, gen,
         then=lambda root, train_dir, val_dir: (
-            phase_glm_ooc(root, train_dir, val_dir, dev, smi, gen, peaks),
+            phase_glm_ooc(root, train_dir, val_dir, dev, smi),
             phase_mp_driver(train_dir, val_dir, root, dev, smi),
             phase_recovery_driver(train_dir, val_dir, root, dev, smi)))
     path_launches, path_timing = phase_path(obj, batch, csc, smi, gen, dev,
                                             peaks)
     launches_by_path.update(path_launches)
-    max_err = max(max_err, path_timing["max_abs_err"])
+    col_err = max(col_err, path_timing["max_abs_err"],
+                  driver_timing["max_abs_err"], ooc_timing["max_abs_err"],
+                  stream_timing["max_abs_err"])
     phase_re_solve(dev, gen, smi)
     launches_by_path["game_cd"], game_ctx = phase_game(dev, smi)
-    launches_by_path["game_driver"], game_driver_timing = phase_game_driver(
-        dev, smi, peaks, gen)
+    launches_by_path["game_driver"] = phase_game_driver(dev, smi)
     launches_by_path["game_cd_streaming"] = phase_game_stream(game_ctx, dev,
                                                               smi)
     # phase 17: multi-process
@@ -3106,43 +3389,57 @@ def main() -> int:
     print(f"phase 18: {time.perf_counter() - t_rec:.2f} s (leg (b) ran "
           "inside phase 9's directory)")
 
+    # phases 5-18 ran no multiply_prefix_sum but the named ones
+    mps_on_paths = multiply_prefix_sum.launches - mps_start - EXPLICIT_MPS[0]
+    print(f"multiply_prefix_sum launches after phase 3: {EXPLICIT_MPS[0]} "
+          f"by name (timings), {mps_on_paths} on the paths (must be 0)")
+    if mps_on_paths or mps_launches:
+        raise RuntimeError(f"multiply_prefix_sum ran on a path "
+                           f"({mps_on_paths} launches)")
+
+    def shape(t):
+        return {k: v for k, v in t.items() if k not in ("lbfgs_res",)}
+
     print(smi)
     print(json.dumps({"kernels": [{
+        "name": "csc_column_sums",
+        "route": "cuda",
+        "source": "photon_ml_tpu_torch/ops/csrc/csc_column_sums.cu",
+        "replaces": "photon_ml_tpu/ops/pallas_kernels.py:168",
+        "launches": launches,
+        "launches_by_path": launches_by_path,
+        "max_abs_err": col_err,
+        "tol": f"{TOL_COLUMN} * sum_j |x| (+ one float32 ulp of |ref_j|)",
+        "ms": col_timing["kernel_ms"],
+        "device_ms": col_timing["device_ms"],
+        "plain_ms": col_timing["plain_ms"],
+        "bound_ms": col_timing["bound_ms"],
+        "bound_by": col_timing["bound_by"],
+        "library_ms": col_timing["library_ms"],
+        "library": "cuSPARSE SpMV: torch.sparse_csr_tensor(col_starts, "
+                   "rows, values or ones) @ d",
+        "previous_route_ms": col_timing["previous_ms"],
+        "shapes": {
+            "main": shape(col_timing),
+            "glm_driver_with_values": shape(driver_timing),
+            "path_float64_with_values": shape(path_timing),
+            "stream_chunk": shape(stream_timing),
+            "glm_driver_ooc_chunk_with_values": shape(ooc_timing)},
+    }, {
         "name": "multiply_prefix_sum",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/ops/csrc/multiply_prefix_sum.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:34",
-        "launches": launches,
-        "launches_by_path": launches_by_path,
+        "launches": mps_launches,
+        "launches_by_name_after_phase_3": EXPLICIT_MPS[0],
         "max_abs_err": max_err,
-        "max_err": max_err,
         "tol": f"{TOL_SCAN} * cumsum(|x|) per tile",
         "ms": timing["kernel_ms"],
-        "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
-        "glm_driver_with_values": {
-            key: driver_timing[key] for key in (
-                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
-        "game_driver_with_values": {
-            key: game_driver_timing[key] for key in (
-                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
-        "stream_chunk": {
-            key: stream_timing[key] for key in (
-                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "sort_ms", "combine_ms", "h2d_ms")},
-        "glm_driver_ooc_chunk_with_values": {
-            key: ooc_timing[key] for key in (
-                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
-        "path_float64_with_values": {
-            key: path_timing[key] for key in (
-                "nnz", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err")},
+        "library": "torch.cumsum in float64",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,7 +15,7 @@ reads the other's runs, and a model saved here loads there.
 The fits run on ``--device`` (default ``cuda``, which raises without a
 GPU; ``--device cpu`` runs everything on the CPU) through
 ``estimators.GameEstimator``: every gradient of a fixed coordinate's
-sparse fits goes through ``ops.kernels``'s ``multiply_prefix_sum`` (the
+sparse fits goes through ``ops.kernels``'s ``csc_column_sums`` (the
 hand-written CUDA kernel on the card, its plain version on the CPU), the
 random coordinates through the batched solvers of ``optimize/batched.py``.
 

@@ -12,7 +12,7 @@ The data goes to ``--device`` (default ``cuda``, which raises without a
 GPU; ``--device cpu`` runs everything on the CPU). The column-sorted view
 behind the sparse gradient is built once for the whole grid, and every
 gradient of every lambda's fit goes through ``ops.kernels``'s
-``multiply_prefix_sum`` (the hand-written CUDA kernel on the card, its
+``csc_column_sums`` (the hand-written CUDA kernel on the card, its
 plain version on the CPU).
 
 ``--path-screen strong|safe`` walks the grid through

@@ -13,7 +13,7 @@ effect over sparse features takes the column-sorted gradient path: its
 ``CSCTranspose`` is built once per coordinate, and every gradient and TRON
 Hessian-vector product of its fits goes through the resolved ``sparse_grad``
 mode's ``X^T d`` (``"auto"`` is ``"csc_kernel"``: on the card, the
-``multiply_prefix_sum`` kernel). A fixed coordinate with ``streaming=True``
+``csc_column_sums`` kernel). A fixed coordinate with ``streaming=True``
 keeps its shard in host RAM as fixed-shape chunks and streams them through
 the device on every pass (``parallel.streaming.fit_streaming``, the same
 kernel per chunk); a shard in ``GameDataset.feature_sources`` (a

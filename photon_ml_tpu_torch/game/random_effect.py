@@ -108,13 +108,15 @@ class _BucketObjective:
     def value(self, W):
         per = apply_weights(self.weights,
                             self.loss.loss(self.margins(W), self.labels))
-        return torch.sum(per, dim=1) + 0.5 * self.l2 * torch.sum(W * W, dim=1)
+        return (batched.padded_sum(per)
+                + 0.5 * self.l2 * batched.padded_sum(W * W))
 
     def value_and_grad(self, W):
         m = self.margins(W)
         per = apply_weights(self.weights, self.loss.loss(m, self.labels))
         d1 = apply_weights(self.weights, self.loss.d1(m, self.labels))
-        f = torch.sum(per, dim=1) + 0.5 * self.l2 * torch.sum(W * W, dim=1)
+        f = (batched.padded_sum(per)
+             + 0.5 * self.l2 * batched.padded_sum(W * W))
         return f, torch.einsum("end,en->ed", self.X, d1) + self.l2 * W
 
     def hvp(self, W):
@@ -195,7 +197,7 @@ def _newton_dense_solver(local_dim: int, task: str, config: OptimizerConfig,
         E = indices.shape[0]
         f0 = obj.value(w0)
         g0 = obj.value_and_grad(w0)[1]
-        g0n = torch.sqrt(torch.sum(g0 * g0, dim=1))
+        g0n = torch.sqrt(batched.padded_sum(g0 * g0))
         # converged_check semantics, batched: tol <= 0 disables the tests;
         # a positive tol is clamped to a few ulps of the dtype
         eff_tol = (max(float(tol), 4 * torch.finfo(dt).eps) if tol > 0
@@ -216,7 +218,7 @@ def _newton_dense_solver(local_dim: int, task: str, config: OptimizerConfig,
                                 torch.zeros((), dtype=dt, device=dev))
             f_new = torch.where(
                 any_ok, torch.gather(f_tries, 0, first_ok[None, :])[0], f)
-            gnorm = torch.sqrt(torch.sum(g * g, dim=1))
+            gnorm = torch.sqrt(batched.padded_sum(g * g))
             # the relative-loss half needs an accepted step; the gradient
             # half fires regardless (step-halving failing at the optimum is
             # convergence, not a stall)

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every source under ``ops/csrc/`` for ``sm_90a`` into one
+``nvcc`` compiles every source under ``ops/csrc/`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use into ``ops/_build/`` (not committed), named by a hash of
 the sources so an edited source is never served a stale library. Nothing
@@ -9,12 +10,15 @@ here runs at import time; a failed build raises with the compiler's output.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+from photon_ml_tpu_torch.ops.kernels import COLUMN_RANGE, COLUMN_SUB
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -42,6 +46,14 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> Path:
     """Compile the sources into the library unless it is already built;
     ``-Xptxas -v`` writes each kernel's registers and spills to
@@ -50,15 +62,20 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        logs = list(pool.map(_run, [
+            [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+             "-Xcompiler", "-fPIC", "-c", "-o", str(o), str(p)]
+            for p, o in zip(sources, objs)]))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    logs.append(_run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]))
+    for o in objs:
+        o.unlink()
+    so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent build never loads a half file
     return so
 
@@ -66,15 +83,28 @@ def build() -> Path:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use, with every function's
-    argument types declared (pointers and the stream as ``c_void_p``)."""
+    argument types declared (pointers and the stream as ``c_void_p``);
+    raises if its column-sum order is not the plain version's."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
     for name in ("photon_mps_f32", "photon_mps_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ptr]
         fn.restype = ctypes.c_int
-    lib.photon_mps_tile.argtypes = []
-    lib.photon_mps_tile.restype = ctypes.c_int
+    for name in ("photon_csc_column_sums_f32", "photon_csc_column_sums_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 8 + [i64, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    for name in ("photon_mps_tile", "photon_csc_range", "photon_csc_sub"):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    # csc_column_sums_plain repeats the kernel's summation order
+    got = (lib.photon_csc_range(), lib.photon_csc_sub())
+    if got != (COLUMN_RANGE, COLUMN_SUB):
+        raise RuntimeError(
+            f"csc_column_sums sums ranges of {got[0]} in runs of {got[1]}, "
+            f"its plain version {COLUMN_RANGE} and {COLUMN_SUB}")
     for name in ("photon_cuda_error_name", "photon_cuda_error_string"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int]

@@ -1,15 +1,23 @@
 """Hand-written kernels of the sparse-gradient hot path (counterpart of
 ``photon_ml_tpu/ops/pallas_kernels.py``).
 
-``multiply_prefix_sum`` replaces the Pallas kernel ``_mps_kernel``: the fused
-product ``values * d_sorted`` and its TILE-LOCAL inclusive prefix sum plus
-per-tile totals, exactly the pair ``types.blocked_boundary_combine``
-consumes. The product is formed in the input dtype; the prefix and totals
-are float64 whatever the input dtype, so each column sum rounds once, after
-the boundary difference (see the kernel's header note). On a CUDA tensor it launches the CUDA kernel
-(``csrc/multiply_prefix_sum.cu``) or raises; on a CPU tensor it takes the
-plain PyTorch version below, which the tests and ``chip_smoke.py`` hold the
-kernel against.
+``csc_column_sums`` is the paths' ``X^T d``: the column sums of ``values *
+d[rows]`` over the column-sorted view in one pass
+(``csrc/csc_column_sums.cu``), what ``csc_transpose_apply_pallas``
+computes as a gather, the Pallas kernel ``_mps_kernel`` and a boundary
+combine. Every product is exact in float64 and every sum is taken in a
+fixed order, rounded once to ``d``'s dtype, so a column's error does not
+grow with nnz.
+
+``multiply_prefix_sum`` is ``_mps_kernel``'s literal counterpart: the
+fused product ``values * d_sorted`` and its TILE-LOCAL inclusive float64
+prefix sum plus per-tile totals, the pair ``types.blocked_boundary_combine``
+consumes (``csrc/multiply_prefix_sum.cu``). No path runs it; the tests
+hold it against the JAX package's kernel.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it takes its plain PyTorch version below, which the tests and
+``chip_smoke.py`` hold the kernel against.
 """
 
 from __future__ import annotations
@@ -18,10 +26,14 @@ from typing import Optional
 
 import torch
 
-from photon_ml_tpu_torch.types import CSCTranspose, blocked_boundary_combine
+from photon_ml_tpu_torch.types import CSCTranspose
 
 TILE = 32768  # elements per tile, as the TPU kernel's 256 x 128 block
 _FLOATS = (torch.float32, torch.float64)
+COLUMN_RANGE = 2048  # nonzeros per block of the CUDA kernel (its kRange)
+COLUMN_SUB = 8  # nonzeros per thread of the CUDA kernel (its kPerThread);
+# load_library checks both against the library
+_MAX_NNZ = (1 << 31) - 1 - COLUMN_RANGE  # int32 positions, and a range
 
 
 def multiply_prefix_sum_plain(values: Optional[torch.Tensor],
@@ -119,14 +131,122 @@ def multiply_prefix_sum(values: Optional[torch.Tensor],
 multiply_prefix_sum.launches = 0
 
 
+def csc_column_sums_plain(csc: CSCTranspose,
+                          d: torch.Tensor) -> torch.Tensor:
+    """Plain version, in the kernel's order: the exact float64 products
+    ``values * d[rows]`` summed in order (``torch.segment_reduce``, which
+    adds from 0, one term after another, on the CPU) at three levels:
+    runs cut at the column starts and at every multiple of
+    ``COLUMN_SUB``; those runs' sums per piece, cut at the column starts
+    and at every multiple of ``COLUMN_RANGE``; the pieces' sums per
+    column. Rounded once to ``d``'s dtype; on the CPU it gives the
+    kernel's bits."""
+    x = d.to(torch.float64)[csc.rows]
+    if csc.values is not None:
+        x = csc.values.to(torch.float64) * x
+    starts = csc.col_starts.to(torch.int64)
+    nnz, dim = x.shape[0], starts.shape[0] - 1
+    column_start = torch.zeros(nnz, dtype=torch.bool, device=x.device)
+    column_start[starts[starts < nnz]] = True
+    cuts = []
+    for step in (COLUMN_SUB, COLUMN_RANGE):
+        cut = column_start.clone()
+        cut[::step] = True
+        cuts.append(torch.nonzero(cut).squeeze(1))
+    sub_cuts, piece_cuts = cuts
+    end = sub_cuts.new_tensor([nnz])
+    subs = torch.segment_reduce(x, "sum", lengths=torch.diff(
+        sub_cuts, append=end), unsafe=True)
+    pieces = torch.segment_reduce(subs, "sum", lengths=torch.diff(
+        torch.searchsorted(sub_cuts, piece_cuts),
+        append=end.new_tensor([sub_cuts.shape[0]])), unsafe=True)
+    column = torch.searchsorted(starts, piece_cuts, right=True) - 1
+    return torch.segment_reduce(
+        pieces, "sum", lengths=torch.bincount(column, minlength=dim),
+        unsafe=True).to(d.dtype)
+
+
+def _check_csc(csc: CSCTranspose, d: torch.Tensor):
+    rows, starts, values = csc.rows, csc.col_starts, csc.values
+    if d.dim() != 1 or d.dtype not in _FLOATS or not d.is_contiguous():
+        raise ValueError("d must be a contiguous 1-D float32 or float64 "
+                         f"tensor, got {tuple(d.shape)} {d.dtype}")
+    for name, t in (("rows", rows), ("col_starts", starts)):
+        if t.dim() != 1 or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if starts.shape[0] < 1:
+        raise ValueError("col_starts must hold dim + 1 >= 1 entries")
+    if rows.shape[0] > _MAX_NNZ:
+        raise ValueError(f"nnz {rows.shape[0]} exceeds {_MAX_NNZ}")
+    if values is not None and (values.shape != rows.shape
+                               or values.dtype != d.dtype
+                               or not values.is_contiguous()):
+        raise ValueError(
+            "values must be contiguous, of rows' shape and of d's dtype: "
+            f"{tuple(values.shape)} {values.dtype} vs rows "
+            f"{tuple(rows.shape)}, d {d.dtype}")
+    for t in (rows, starts, values):
+        if t is not None and t.device != d.device:
+            raise ValueError(f"the view lies on {t.device}, d on {d.device}")
+
+
+def _launch_column_sums(csc: CSCTranspose, d: torch.Tensor) -> torch.Tensor:
+    from photon_ml_tpu_torch.ops.kernel_build import load_library
+
+    lib = load_library()
+    for name, t in (("rows", csc.rows), ("values", csc.values)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    nnz, dim = csc.rows.shape[0], csc.col_starts.shape[0] - 1
+    n_ranges = max(-(-nnz // COLUMN_RANGE), 1)
+    out = torch.empty(dim, dtype=d.dtype, device=d.device)
+    # one scratch buffer: the ranges' float64 heads and tails, then their
+    # int32 spanning columns
+    scratch = torch.empty(2 * n_ranges + (n_ranges + 1) // 2,
+                          dtype=torch.float64, device=d.device)
+    head = scratch.data_ptr()
+    fn = (lib.photon_csc_column_sums_f32 if d.dtype == torch.float32
+          else lib.photon_csc_column_sums_f64)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(None if csc.values is None else csc.values.data_ptr(),
+                 csc.rows.data_ptr(), csc.col_starts.data_ptr(),
+                 d.data_ptr(), out.data_ptr(), head, head + 8 * n_ranges,
+                 head + 16 * n_ranges, nnz, dim, n_ranges, stream)
+    if err != 0:
+        raise launch_error(lib, err, "csc_column_sums kernel launch")
+    csc_column_sums.launches += 1
+    return out
+
+
+def csc_column_sums(csc: CSCTranspose, d: torch.Tensor) -> torch.Tensor:
+    """``X^T d`` from the column-sorted view: ``out[j]`` sums ``values[p] *
+    d[rows[p]]`` (``d[rows[p]]`` for implicit ones) over column ``j``'s
+    nonzeros ``[col_starts[j], col_starts[j+1])``, in float64, rounded
+    once to ``d``'s dtype; an empty column gives exactly 0.
+
+    ``rows`` and ``col_starts`` (``dim + 1`` entries) are contiguous int32;
+    ``values`` (or None) and ``d`` are float32 or float64 of one dtype, all
+    on one device. CUDA tensors go to the kernel, CPU tensors to the plain
+    version; anything else raises. ``csc_column_sums.launches`` counts the
+    kernel's calls (one per call, which launches two CUDA kernels)."""
+    _check_csc(csc, d)
+    if d.device.type == "cuda":
+        return _launch_column_sums(csc, d)
+    if d.device.type == "cpu":
+        return csc_column_sums_plain(csc, d)
+    raise ValueError(f"unsupported device {d.device}")
+
+
+csc_column_sums.launches = 0
+
+
 def csc_transpose_apply_kernel(csc: CSCTranspose,
                                d: torch.Tensor) -> torch.Tensor:
-    """``X^T d`` from the column-sorted view through
-    :func:`multiply_prefix_sum` and the shared blocked boundary combine
-    (counterpart of ``csc_transpose_apply_pallas``; same accuracy
-    guarantee: the error does not grow with nnz; the combine runs in float64
-    and rounds each column sum once). Implicit ones pass ``values=None``, so
-    the kernel reads no ones vector."""
-    local, totals, tile = multiply_prefix_sum(csc.values, d[csc.rows])
-    return blocked_boundary_combine(local, totals, csc.col_starts,
-                                    tile).to(d.dtype)
+    """``X^T d`` from the column-sorted view through :func:`csc_column_sums`
+    (counterpart of ``csc_transpose_apply_pallas``, whose gather, scan and
+    boundary combine it does in one pass: each column sum carries only its
+    own float64 rounding and one rounding to ``d``'s dtype). Implicit ones
+    pass no values, so the kernel reads no ones vector."""
+    return csc_column_sums(csc, d)

@@ -51,12 +51,30 @@ class BatchedResult(NamedTuple):
     host_syncs: int
 
 
+def padded_sum(x: torch.Tensor) -> torch.Tensor:
+    """Each entity's sum over the last axis, folded in halves over the next
+    power of two: the pairs are those of a width that padding with zeros
+    at the end cannot change (a zero half adds exact zeros), so an entity
+    padded to other widths, as an entity-sharded run pads it, sums to the
+    same bits. Only element-wise adds, so the CPU and the card round
+    alike (``torch.sum`` groups its terms by the row's length and the
+    device)."""
+    width = x.shape[-1]
+    full = 1 << (width - 1).bit_length()
+    if full != width:
+        x = torch.nn.functional.pad(x, (0, full - width))
+    while full > 1:
+        full //= 2
+        x = x[..., :full] + x[..., full:]
+    return x[..., 0]
+
+
 def _rows_norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(a * a, dim=-1))
+    return torch.sqrt(padded_sum(a * a))
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b, dim=-1)
+    return padded_sum(a * b)
 
 
 def _sel(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
@@ -342,10 +360,10 @@ def owlqn(fun_and_grad: Callable, w0: torch.Tensor, l1_weight,
             return fun_and_grad(W)[0]
 
     def full_value(W):
-        return fun(W) + torch.sum(lam * torch.abs(W), dim=-1)
+        return fun(W) + padded_sum(lam * torch.abs(W))
 
     f0, g = fun_and_grad(w0)
-    w, F = w0, f0 + torch.sum(lam * torch.abs(w0), dim=-1)
+    w, F = w0, f0 + padded_sum(lam * torch.abs(w0))
     pg0_norm = _rows_norm(pseudo_gradient(w0, g, lam))
     s_hist = torch.zeros((E, m, D), dtype=dtype, device=dev)
     y_hist = torch.zeros_like(s_hist)

@@ -24,7 +24,7 @@ all-zero column (pad slots index it).
 Every full-gradient pass and every restricted solve of sparse features goes
 through the column-sorted ``X^T d`` of the resolved ``sparse_grad`` mode:
 ``"auto"`` resolves to ``"csc_kernel"``, so on the card each of them
-launches ``ops.kernels.multiply_prefix_sum``. The full problem's
+launches ``ops.kernels.csc_column_sums``. The full problem's
 column-sorted view is built once (or taken from ``precomputed_csc``); each
 restricted solve builds its own inside ``fit_distributed``.
 

@@ -71,8 +71,9 @@ from photon_ml_tpu_torch.types import (
 SPARSE_GRAD_MODES = ("scatter", "csc", "csc_kernel", "csc_precise",
                      "csc_segment")
 _CSC_APPLY = {
-    # the plain path blocks at the kernel's tile, so both difference the
-    # same tile-local float64 prefixes and round each column sum alike
+    # the plain path differences float64 prefixes local to blocks of the
+    # TPU kernel's tile (32,768 elements); "csc_kernel" sums each column
+    # in float64 in one pass, so the two round a column sum apart
     "csc": functools.partial(csc_transpose_apply, block=TILE),
     "csc_kernel": csc_transpose_apply_kernel,
     "csc_precise": functools.partial(csc_transpose_apply, precise=True),

@@ -21,7 +21,7 @@ through the column-sorted path of ``parallel/data_parallel.py``: the
 chunk's CSC view is built on the device right after it lands (a stable
 sort, so it is the same in every pass and every run), and ``X^T d`` goes
 through ``sparse_grad``'s apply. ``"auto"`` is ``"csc_kernel"``, the
-hand-written ``multiply_prefix_sum``, once per chunk; it sums without
+hand-written ``csc_column_sums``, once per chunk; it sums without
 atomics, so a streamed fit does not depend on the prefetch depth or on a
 chunk cache. The JAX package differentiates a scatter here instead.
 

@@ -80,8 +80,9 @@ class CSCTranspose:
     """Column-sorted view of a SparseFeatures batch for scatter-free
     transpose products. The sparsity pattern is fixed across optimizer
     iterations, so the nonzeros are sorted by column once and ``X^T d`` is
-    computed as gather -> tile-local prefix sum -> boundary combine: no
-    atomics, so the result does not depend on scheduling.
+    computed from them with no atomics (the plain blocked prefix of
+    :func:`csc_transpose_apply`, or the kernel's one-pass column sums), so
+    the result does not depend on scheduling.
 
     Attributes:
       values: [nnz] feature values sorted by column id (None: implicit ones).
@@ -131,9 +132,8 @@ def csc_transpose_apply(csc: CSCTranspose, d: torch.Tensor,
     inclusive cumsum, and :func:`blocked_boundary_combine` forms each
     column's sum from block-local prefixes (a single global prefix would
     cancel catastrophically once it dwarfs a column's own sum). The local
-    prefixes are float64 whatever the input dtype, as the kernel's are
-    (``ops.kernels.multiply_prefix_sum``), so each column sum rounds once,
-    after the difference. ``precise=True`` takes one float64 global prefix
+    prefixes are float64 whatever the input dtype, so each column sum
+    rounds once, after the difference. ``precise=True`` takes one float64 global prefix
     instead and differences it at the column boundaries."""
     dg = d[csc.rows]
     contrib = dg if csc.values is None else csc.values * dg

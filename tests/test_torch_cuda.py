@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernel on the card, against its plain version,
-and the fits and metrics that run through it against the same on the CPU.
+"""The hand-written CUDA kernels on the card, against their plain versions,
+and the fits and metrics that run through them against the same on the
+CPU.
 
 Skipped without a CUDA device. This file imports neither JAX nor the JAX
 package, so on a GPU machine without JAX it runs with
@@ -14,13 +15,15 @@ from photon_ml_tpu_torch.evaluation.evaluators import auc
 from photon_ml_tpu_torch.interop import batch_from_numpy
 
 from photon_ml_tpu_torch.ops.kernels import (
-    TILE, csc_transpose_apply_kernel, multiply_prefix_sum,
-    multiply_prefix_sum_plain,
+    TILE, csc_column_sums, csc_column_sums_plain, csc_transpose_apply_kernel,
+    multiply_prefix_sum, multiply_prefix_sum_plain,
 )
 from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.optimize.common import OptimizerConfig
 from photon_ml_tpu_torch.parallel.data_parallel import fit_distributed
-from photon_ml_tpu_torch.types import build_csc_transpose, csc_transpose_apply
+from photon_ml_tpu_torch.types import (
+    CSCTranspose, build_csc_transpose, csc_transpose_apply,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +75,79 @@ def test_csc_transpose_apply_kernel_accuracy(cuda):
     assert float(((got - ref).abs() / ref.clamp(min=1e-30)).max()) < 1e-4
 
 
+RANGE = 2048  # nonzeros per block of csc_column_sums (photon_csc_range)
+
+
+def _column_view(case, device, gen):
+    """A column-sorted view of each case's shape: "spread" (a ragged last
+    range), "whole ranges", "nnz 0", "one column" (2^20 nonzeros, 512
+    ranges), "many empty" (24 nonempty columns among 100,000)."""
+    dim, nnz = 1000, 5 * RANGE + 17
+    lengths = torch.zeros(dim, dtype=torch.int64)
+    if case == "one column":
+        lengths[17] = 1 << 20
+    elif case == "many empty":
+        dim = 100_000
+        lengths = torch.zeros(dim, dtype=torch.int64)
+        cols = torch.randperm(dim, generator=gen)[:24]
+        lengths[cols] = torch.randint(1, 2 * RANGE, (24,), generator=gen)
+    elif case != "nnz 0":
+        total = 5 * RANGE if case == "whole ranges" else nnz
+        cols = torch.randint(0, dim, (total,), generator=gen)
+        lengths = torch.bincount(cols, minlength=dim)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.cumsum(lengths, 0)]).to(torch.int32)
+    rows = torch.randint(0, 4096, (int(starts[-1]),), generator=gen,
+                         dtype=torch.int32)
+    return starts.to(device), rows.to(device)
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["spread", "whole ranges", "nnz 0",
+                                  "one column", "many empty"])
+def test_csc_column_sums_matches_plain(cuda, case, dtype, with_values):
+    """The kernel against its plain version and the float64 column sum
+    ``ref``: float32 within one float32 ulp of ``|ref|`` plus ``1e-12 *
+    sum_j |x|``, float64 within ``1e-12 * sum_j |x|``; equal bit for bit
+    to the plain version run on the CPU (it sums in the kernel's order);
+    empty columns exactly 0; two runs bit-identical; one count per
+    call."""
+    gen = torch.Generator()
+    gen.manual_seed(len(case))
+    starts, rows = _column_view(case, cuda, gen)
+    nnz = rows.shape[0]
+    d = torch.randn(4096, generator=gen, dtype=dtype).to(cuda)
+    values = (torch.randn(nnz, generator=gen, dtype=dtype).to(cuda)
+              if with_values else None)
+    csc = CSCTranspose(values, rows, starts)
+    launches = csc_column_sums.launches
+    got = csc_column_sums(csc, d)
+    again = csc_column_sums(csc, d)
+    assert csc_column_sums.launches == launches + 2
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, again)
+    host = csc_column_sums_plain(CSCTranspose(
+        None if values is None else values.cpu(), rows.cpu(), starts.cpu()),
+        d.cpu())
+    assert torch.equal(got.cpu(), host)
+    x = d.double()[rows]
+    if values is not None:
+        x = x * values.double()
+    lengths = torch.diff(starts.long())
+    ref = torch.segment_reduce(x, "sum", lengths=lengths, unsafe=True)
+    scale = torch.segment_reduce(x.abs(), "sum", lengths=lengths,
+                                 unsafe=True)
+    tol = 1e-12 * scale
+    if dtype == torch.float32:
+        _, e = torch.frexp(ref.abs())
+        tol = tol + torch.where(ref == 0, 0.0, torch.ldexp(
+            torch.ones_like(ref), e - 24))
+    for out in (got, csc_column_sums_plain(csc, d)):
+        assert bool(((out.double() - ref).abs() <= tol).all())
+    assert bool((got[lengths == 0] == 0).all())
+
+
 def test_kernel_rejects_other_tiles(cuda):
     with pytest.raises(ValueError):
         multiply_prefix_sum(None, torch.ones(10, device=cuda), tile=1024)
@@ -96,14 +172,14 @@ def test_fit_on_card_matches_cpu(cuda, optimizer):
     for dev in ("cpu", "cuda", "cuda"):
         batch = batch_from_numpy(idx, None, y, dim=dim, dtype=torch.float64,
                                  device=dev)
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
         res = fit_distributed(
             make_objective("logistic"), batch,
             torch.zeros(dim, dtype=torch.float64, device=dev), l2=1.0,
             l1=2.0, optimizer=optimizer,
             config=OptimizerConfig(max_iters=8, tolerance=0.0),
             sparse_grad="csc_kernel")
-        launched = multiply_prefix_sum.launches - launches
+        launched = csc_column_sums.launches - launches
         fits.setdefault(dev, []).append((res, launched))
     cpu, (card, launched), (again, _) = fits["cpu"][0][0], *fits["cuda"]
     assert card.iterations == cpu.iterations == 8
@@ -148,9 +224,9 @@ def test_glm_driver_on_card_matches_cpu(cuda, tmp_path):
     argv = ["--train-data", str(tmp_path / "train.avro"), "--hash-dim",
             "1024", "--reg-weights", "10", "1", "--dtype", "float64",
             "--tolerance", "0", "--max-iters", "10"]
-    launches = multiply_prefix_sum.launches
+    launches = csc_column_sums.launches
     assert glm_driver.main(argv + ["--output-dir", str(tmp_path / "card")]) == 0
-    assert multiply_prefix_sum.launches - launches == 2 * 11
+    assert csc_column_sums.launches - launches == 2 * 11
     assert glm_driver.main(argv + ["--output-dir", str(tmp_path / "cpu"),
                                    "--device", "cpu"]) == 0
     for lam in ("10", "1"):
@@ -189,9 +265,9 @@ def test_path_walk_on_card_matches_cpu(cuda):
             path_config=PathConfig(screen="strong"))
         grid = np.geomspace(solver.lambda_max(), 0.05 * solver.lambda_max(),
                             6)
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
         walks[dev] = ([solver.solve(float(lam)) for lam in grid],
-                      multiply_prefix_sum.launches - launches)
+                      csc_column_sums.launches - launches)
     (cpu, _), (card, launched) = walks["cpu"], walks["cuda"]
     assert launched > 0
     for (rc, sc), (rg, sg) in zip(cpu, card):
@@ -227,9 +303,9 @@ def test_path_walk_f32_on_card(cuda):
         path_config=PathConfig(screen="strong")) for dev in ("cpu", "cuda")}
     solver = solvers["cuda"]
     grid = np.geomspace(solver.lambda_max(), 0.05 * solver.lambda_max(), 6)
-    launches = multiply_prefix_sum.launches
+    launches = csc_column_sums.launches
     walk = [solver.solve(float(lam)) for lam in grid]
-    assert multiply_prefix_sum.launches > launches
+    assert csc_column_sums.launches > launches
     w_prev, g_prev, l1_prev = solver._probe()
     restricted = 0
     for lam, (res, st) in zip(grid, walk):
@@ -286,12 +362,12 @@ def test_game_cd_on_card_matches_cpu(cuda):
     ]
     runs = {}
     for dev in ("cpu", "cuda", "cuda"):
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
         model, hist = CoordinateDescent(
             configs, n_iterations=3, evaluators=["auc"],
             dtype=torch.float64, device=dev).run(train, val)
         runs.setdefault(dev, []).append(
-            (model, hist, multiply_prefix_sum.launches - launches))
+            (model, hist, csc_column_sums.launches - launches))
     (cpu, h_cpu, _), = runs["cpu"]
     (card, h_card, launched), (again, _, _) = runs["cuda"]
     assert launched > 0
@@ -343,7 +419,7 @@ def test_game_drivers_on_card_match_cpu(cuda, tmp_path):
          "reg_weight": 1.0, "max_iters": 5, "tolerance": 0.0}])
     out, scores, launched = {}, {}, {}
     for dev in ("cpu", "cuda"):
-        before = multiply_prefix_sum.launches
+        before = csc_column_sums.launches
         assert game_training_driver.main([
             "--train-data", str(tmp_path / "train.avro"),
             "--validation-data", str(tmp_path / "val.avro"),
@@ -352,7 +428,7 @@ def test_game_drivers_on_card_match_cpu(cuda, tmp_path):
             "--tuning-coordinates", "fixed", "--dtype", "float64",
             "--output-dir", str(tmp_path / f"t-{dev}"),
             "--device", dev]) == 0
-        launched[dev] = multiply_prefix_sum.launches - before
+        launched[dev] = csc_column_sums.launches - before
         out[dev] = tmp_path / f"t-{dev}"
         assert game_scoring_driver.main([
             "--data", str(tmp_path / "val.avro"), "--model-dir",
@@ -394,7 +470,11 @@ def _stream_chunks(n=3000, dim=300, k=7, chunk_rows=512, seed=3):
 def test_streamed_kernel_fg_matches_plain_on_card(cuda):
     """One streamed gradient pass through the kernel (one launch per
     chunk) against the plain column-sorted pass, both on the card, and
-    against the same pass in float64 on the CPU."""
+    against the same pass in float64 on the CPU. The two card routes round
+    each chunk's column sums apart (the kernel sums each column in float64,
+    ``"csc"`` differences float64 tile prefixes), so per column they agree
+    within ``1e-6 * (X^T |d1|)_j``, about eight float32 ulps of the
+    column's absolute sum; ``f`` takes no column sum and is equal."""
     from photon_ml_tpu_torch.parallel.streaming import (
         streaming_value_and_grad,
     )
@@ -404,15 +484,23 @@ def test_streamed_kernel_fg_matches_plain_on_card(cuda):
     w = torch.linspace(-0.5, 0.5, dim)
     out = {}
     for mode in ("csc_kernel", "csc"):
-        launches = multiply_prefix_sum.launches
+        launches = csc_column_sums.launches
         fg = streaming_value_and_grad(obj, chunks, dim, torch.float32,
                                       sparse_grad=mode, device=cuda)
         out[mode] = fg(w.to(cuda), 0.5)
-        used = multiply_prefix_sum.launches - launches
+        used = csc_column_sums.launches - launches
         assert used == (len(chunks) if mode == "csc_kernel" else 0)
     f64 = streaming_value_and_grad(obj, chunks, dim, torch.float64,
                                    device="cpu")(w.double(), 0.5)
-    assert torch.equal(out["csc_kernel"][1], out["csc"][1])
+    scale = np.zeros(dim)
+    w64 = w.double().numpy()
+    for c in chunks:
+        m = (c.values * w64[c.indices]).sum(1) + c.offsets
+        d1 = c.weights * np.abs(1 / (1 + np.exp(-m)) - c.labels)
+        np.add.at(scale, c.indices.reshape(-1),
+                  (np.abs(c.values) * d1[:, None]).reshape(-1))
+    diff = (out["csc_kernel"][1] - out["csc"][1]).double().abs().cpu()
+    assert bool((diff.numpy() <= 1e-6 * scale).all())
     assert float(out["csc_kernel"][0]) == float(out["csc"][0])
     g = out["csc_kernel"][1].double().cpu()
     assert float((g - f64[1]).norm() / f64[1].norm()) < 1e-5
@@ -502,14 +590,14 @@ def test_world1_nccl_fit_equals_no_mesh(cuda):
         for optimizer in ("lbfgs", "tron"):
             fits = []
             for m in (None, mesh):
-                launches = multiply_prefix_sum.launches
+                launches = csc_column_sums.launches
                 res = fit_distributed(
                     make_objective("logistic"), batch,
                     torch.zeros(dim, device=cuda), l2=1.0,
                     optimizer=optimizer,
                     config=OptimizerConfig(max_iters=8, tolerance=0.0),
                     sparse_grad="csc_kernel", mesh=m)
-                fits.append((res, multiply_prefix_sum.launches - launches))
+                fits.append((res, csc_column_sums.launches - launches))
             (one, n_one), (meshed, n_meshed) = fits
             assert torch.equal(one.w, meshed.w), optimizer
             assert n_one == n_meshed > 0

@@ -311,3 +311,18 @@ def _one(fg, e, w):
     W[e] = w
     f, g = fg(W)
     return f[e], g[e]
+
+
+@pytest.mark.parametrize("width", [0, 1, 3, 8, 13])
+def test_padded_sum_ignores_trailing_padding(width):
+    """``batched.padded_sum`` gives the same bits however many zeros pad
+    the last axis, and agrees with a float64 sum."""
+    x = torch.from_numpy(np.random.default_rng(width).normal(
+        size=(4, width)).astype(np.float32))
+    got = batched.padded_sum(x)
+    for pad in (1, 5, 64):
+        assert torch.equal(
+            batched.padded_sum(torch.nn.functional.pad(x, (0, pad))), got)
+    np.testing.assert_allclose(got.double().numpy(),
+                               x.double().sum(-1).numpy(), rtol=1e-6,
+                               atol=1e-6)
