@@ -225,6 +225,44 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     (a real, non-sticky ``cudaErrorInvalidConfiguration``) must not
     satisfy it, and the card must go on working.
 
+19. observability and the device tier of serving, three legs:
+    (a) tracing on the training paths: inside phase 9's directory, phase
+    9's GLM driver run twice more with ``--path-screen strong`` (its L2
+    grid: every lambda a warm-started full-width solve through
+    ``PathSolver``) and ``--profile-dir``, untraced and with
+    ``--trace-dir``; after phase 18, phase 12's GAME fit twice more,
+    untraced and under the span tracer. Each pair differs in the tracer
+    alone and runs under torch's sync debug mode, which counts every call
+    that makes the host wait for the card. Gates: each trace file passes
+    the port's ``trace_cli validate``; one ``glm.path_lambda`` span per
+    lambda and one ``cd.coordinate`` span per coordinate per sweep, as
+    many as the training metrics count; the profiles name the
+    ``csc_column_sums`` kernel; the launches, the counted host reads (the
+    driver's per-lambda log, ``re_solver_host_reads``) and the
+    synchronizing calls equal the untraced run's, and the launches phase
+    9's and phase 12's; the models equal theirs bit for bit. It prints
+    each run's wall time. (b) Inside phase 13's
+    directory, the saved model's per-user coordinate through
+    ``ModelDirCoefficientStore`` -> ``EntityCoefficientLRU`` (one pass over
+    the file for the known ids, one for the validation users) into a
+    ``PagedCoefficientTable`` of 16 pages of 256 rows on the card (4,096
+    resident users, dim 2^16 plus the intercept, 1.07 GB of float32);
+    phase 12's validation rows (39 features and the intercept, about 27%
+    of the users unknown to the model) scored in batches of 32 and of
+    4,096: each batch looks its users up, faults the missing through the
+    LRU, installs them and launches ``paged_gather_score`` on the
+    snapshot (users an install evicted again go round once more). Gates:
+    the scores within 1e-5 of ``score_random_effect`` on the same
+    coefficients and rows; unknown users exactly 0; pages evicted; one
+    launch per round; a snapshot taken before an evicting install scores
+    bit-equal after it. It prints the rows per second, the installs'
+    median times with and without a copy of the table, and one copy's
+    device time. (c) ``paged_gather_score`` against its plain version at
+    (b)'s shapes (B = 32 and 4,096, k = 40, the float32 table and a
+    float64 copy): within 4 eps of the row's sum of |terms|, unknown rows
+    0, two calls bit-identical; its, the plain version's and
+    ``embedding_bag``'s times beside the bound.
+
 Each fit's launch count (``csc_column_sums.launches``) is set to 0 just
 before it and read just after (for phases 9, 13 and 15: before and after
 each driver run; for phases 10 and 12: before and after each of the four
@@ -233,8 +271,12 @@ process). ``multiply_prefix_sum`` must not launch on any path: after
 phase 3 its count may move only by the timings that call it by name, and
 each rank of phases 17 and 18 ends with a count of 0.
 
+``paged_gather_score.launches`` is set to 0 just before each of phase
+19's scoring runs and read just after; its comparisons and timings do not
+count.
+
 The last three lines are the card's name and power limit as ``nvidia-smi``
-gives them, a ``{"kernels": [...]}`` JSON object (both kernels), and
+gives them, a ``{"kernels": [...]}`` JSON object (all three kernels), and
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
 """
@@ -1000,6 +1042,10 @@ def write_driver_fixture(root, file_rows, n_files, n_val_files):
     return os.path.join(root, "train"), os.path.join(root, "validation")
 
 
+# phase 9's driver run, for phase 19's traced run on the same files
+DRIVER_RUN = {}
+
+
 class _RecordingEvaluator:
     """Stands in for an evaluator inside the driver and keeps each score
     vector it is handed."""
@@ -1085,6 +1131,8 @@ def phase_driver(dev, smi, peaks, gen, file_rows=DRIVER_FILE_ROWS,
             glm_driver.get_evaluator = real_get
         if rc != 0:
             raise RuntimeError(f"glm_driver exited with {rc}")
+        DRIVER_RUN.update(argv=argv, out=out, seconds=seconds,
+                          launches=launches)
         with open(os.path.join(out, "photon.log.jsonl")) as f:
             log = [json.loads(line) for line in f]
         read = next(e for e in log if e["event"] == "data_read")
@@ -1612,7 +1660,7 @@ def phase_game(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS):
         raise RuntimeError(f"GameTransformer scores differ: {diff:.3e}")
     auc0 = [rec["auc"] for rec in result.history if rec["iteration"] == 0][-1]
     return launches, dict(train=train, val=val, cache=cache, auc0=auc0,
-                          result=result)
+                          result=result, launches=launches, seconds=seconds)
 
 
 def phase_game_stream(ctx, dev, smi):
@@ -1730,12 +1778,13 @@ def game_driver_coordinates():
 
 
 def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
-                      file_rows=GAME_FILE_ROWS):
+                      file_rows=GAME_FILE_ROWS, then=None):
     """Phase 13: the GAME command-line path at phase 12's shape, written
     as Avro: the feature indexing driver, the training driver (3 sweeps, 2
     Bayesian tuning rounds of the fixed coordinate's reg weight) and the
-    scoring driver on the saved ``best`` model. Returns the kernel's
-    launches in the training driver's run."""
+    scoring driver on the saved ``best`` model; then ``then(best)`` (phase
+    19 (b)) on the saved model before it is removed. Returns (the kernel's
+    launches in the training driver's run, what ``then`` returned)."""
     import os
     import tempfile
 
@@ -1897,6 +1946,7 @@ def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
         scores = np.array([r["predictionScore"] for r in iter_avro_records(
             os.path.join(sout, "scores.avro"))])
         auc = next(e for e in slog if e["event"] == "evaluation")["auc"]
+        after = None if then is None else then(os.path.join(out, "best"))
     print(f"game_scoring_driver: {t_score:.3f} s on {smi}; "
           + ", ".join(f"stage {k} {v:.4f} s" for k, v in stages(slog).items()))
     diff = float(np.abs(scores - want[-1]).max()) if scores.shape == \
@@ -1912,7 +1962,7 @@ def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
     if not abs(auc - best_auc) <= TOL_DRIVER_AUC:
         raise RuntimeError(f"the scoring driver's auc {auc} differs from "
                            f"the training run's {best_auc}")
-    return launches
+    return launches, after
 
 
 def phase_stream(obj, indices, labels, batch, csc, w5, smi, gen, dev, peaks):
@@ -3215,6 +3265,565 @@ def phase_recovery_driver(train_dir, val_dir, root, dev, smi):
     return {"uninterrupted": launches_clean, "resumed": launches_resumed}
 
 
+PAGED_PAGES, PAGED_PAGE_ROWS = 16, 256  # 4,096 resident entities
+PAGED_BATCHES = (32, 4096)
+TOL_PAGED_SCORE = 1e-5  # max |paged - score_random_effect| per row
+PAGED_EPS_GATE = 4  # |kernel - plain| <= 4 eps sum_j |terms_j| per row
+MAX_WAVES = 8  # a batch's rounds of install and score (phase 19 (b))
+SYNC_WARNING = "synchronizing CUDA operation"  # torch's sync debug text
+
+
+def _spans(trace_dir):
+    """The complete spans of ``trace_dir``'s rank-0 trace file, which must
+    pass the port's ``trace_cli validate``."""
+    import os
+
+    from photon_ml_tpu_torch.obs import trace_cli
+
+    path = os.path.join(trace_dir, "trace-rank0.json")
+    if trace_cli.main(["validate", path]) != 0:
+        raise RuntimeError(f"{path} does not validate")
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+
+
+def _metric_delta(before, after, name):
+    return {k: v - before.get(name, {}).get(k, 0.0)
+            for k, v in after.get(name, {}).items()}
+
+
+def counted_syncs(fn):
+    """Runs ``fn()`` under torch's sync debug mode "warn", in which every
+    call that makes the host wait for the card (a device-to-host read, a
+    blocking copy, a stream synchronize) warns once, and returns (what
+    ``fn`` returned, the number of those calls). The optimizers' own
+    ``host_syncs`` counters cannot see a read that a span might add; this
+    count can."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def _lambda_costs(out):
+    """Each lambda's (kernel launches, host reads) from the driver's log."""
+    import os
+
+    with open(os.path.join(out, "photon.log.jsonl")) as f:
+        return [(e["kernel_launches"], e["host_reads"])
+                for e in map(json.loads, f) if e["event"] == "lambda_trained"]
+
+
+def _same_model_files(a_root, b_root, subs, what):
+    import filecmp
+    import os
+
+    for sub in subs:
+        a, b = (os.path.join(d, sub, "fixed-effect", "global")
+                for d in (a_root, b_root))
+        names = sorted(os.listdir(a))
+        _, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+        if mismatch or errors:
+            raise RuntimeError(f"the traced run's {sub} differs from "
+                               f"{what}: {mismatch + errors}")
+
+
+def phase_trace_driver(root, train_dir, val_dir, dev, smi):
+    """Phase 19 (a), inside phase 9's directory: phase 9's GLM driver run
+    twice more with ``--path-screen strong`` (an L2 grid: every lambda a
+    warm-started full-width solve through ``PathSolver``) and
+    ``--profile-dir``, first untraced, then with ``--trace-dir``: the two
+    runs differ in the span tracer alone. Gates: the trace file
+    validates; one ``glm.path_lambda`` span per lambda, as many as the
+    training metrics' lambdas; the profile names the ``csc_column_sums``
+    kernel; the traced run's launches, each lambda's launches and host
+    reads as the driver logs them (``PathSolver.kernel_launches`` and
+    ``host_reads``), and its synchronizing CUDA calls (``counted_syncs``)
+    equal the untraced run's; the launches equal phase 9's; the model
+    files equal both runs' byte for byte. Returns (launches, seconds)."""
+    import os
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.obs.metrics import training_metrics
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
+
+    runs = {}
+    for traced in (False, True):
+        tag = "traced" if traced else "untraced"
+        argv = list(DRIVER_RUN["argv"])
+        at = argv.index("--output-dir")
+        out, pdir = (os.path.join(root, f"{name}_{tag}")
+                     for name in ("out", "profile"))
+        argv[at + 1] = out
+        argv += ["--path-screen", "strong", "--profile-dir", pdir]
+        if traced:
+            argv += ["--trace-dir", os.path.join(root, "trace")]
+        before = training_metrics().snapshot()
+
+        def run(argv=argv):
+            torch.cuda.synchronize()
+            csc_column_sums.launches = 0
+            t0 = time.perf_counter()
+            rc = glm_driver.main(argv)
+            torch.cuda.synchronize()
+            return rc, time.perf_counter() - t0, csc_column_sums.launches
+
+        (rc, seconds, launches), syncs = counted_syncs(run)
+        if rc != 0:
+            raise RuntimeError(f"{tag} glm_driver exited with {rc}")
+        (prof,) = [os.path.join(pdir, f) for f in os.listdir(pdir)]
+        with open(prof) as f:
+            kernels_seen = sorted({e.get("name", "") for e in json.load(f)[
+                "traceEvents"] if e.get("cat") == "kernel"})
+        runs[tag] = dict(
+            out=out, seconds=seconds, launches=launches, syncs=syncs,
+            costs=_lambda_costs(out), profile_bytes=os.path.getsize(prof),
+            named=[k for k in kernels_seen if "column_sums_kernel" in k],
+            lambdas=_metric_delta(
+                before, training_metrics().snapshot(),
+                "photon_train_path_lambdas_total").get("", 0.0))
+    off, on = runs["untraced"], runs["traced"]
+    spans = _spans(os.path.join(root, "trace"))
+    path_spans = [e for e in spans if e["name"] == "glm.path_lambda"]
+    for tag, r in runs.items():
+        print(f"phase 19 (a) glm_driver --path-screen strong --profile-dir, "
+              f"{tag}: {r['seconds']:.3f} s, {r['launches']} launches, "
+              f"{r['syncs']} synchronizing CUDA calls, per lambda (launches, "
+              f"host reads) {r['costs']}; training metrics {r['lambdas']:g} "
+              f"lambdas; profile {r['profile_bytes']} bytes, the "
+              f"transpose's kernel: {r['named']}; on {smi}")
+    print(f"  phase 9's run (unscreened, untraced, unprofiled): "
+          f"{DRIVER_RUN['seconds']:.3f} s, {DRIVER_RUN['launches']} "
+          f"launches; the traced run's {len(spans)} spans, "
+          f"{len(path_spans)} glm.path_lambda")
+    if len(path_spans) != len(DRIVER_GRID) or on["lambdas"] != len(
+            path_spans) or off["lambdas"] != len(path_spans):
+        raise RuntimeError(f"{len(path_spans)} glm.path_lambda spans, "
+                           f"{on['lambdas']} lambdas in the metrics, for a "
+                           f"grid of {len(DRIVER_GRID)}")
+    if [e["args"]["lam"] for e in path_spans] != \
+            [float(g) for g in DRIVER_GRID]:
+        raise RuntimeError("the spans' lambdas are not the grid's")
+    if not (off["named"] and on["named"]):
+        raise RuntimeError("a profile names no csc_column_sums kernel")
+    if not (on["launches"] == off["launches"] == DRIVER_RUN["launches"]
+            and on["costs"] == off["costs"] and on["syncs"] == off["syncs"]
+            and on["syncs"] > 0):
+        raise RuntimeError("tracing changed the launches, the host reads "
+                           "or the synchronizing calls")
+    subs = ["best"] + [os.path.join("all", f"lambda-{float(g):g}")
+                       for g in DRIVER_GRID]
+    _same_model_files(off["out"], on["out"], subs, "the untraced run's")
+    _same_model_files(DRIVER_RUN["out"], on["out"], subs, "phase 9's")
+    print(f"  model files ({', '.join(subs)}) equal the untraced run's and "
+          "phase 9's byte for byte")
+    return on["launches"], on["seconds"]
+
+
+def phase_trace_game(ctx, dev, smi):
+    """Phase 19 (a): phase 12's GAME fit twice more (its data,
+    coordinates, bucket cache and sweeps), untraced and under the span
+    tracer. Gates: the trace file validates; one ``cd.coordinate`` span
+    per coordinate per sweep, as many as the training metrics' steps; the
+    traced fit's launches, random-effect host reads
+    (``re_solver_host_reads``) and synchronizing CUDA calls
+    (``counted_syncs``) equal the untraced fit's; the launches equal phase
+    12's; every coefficient and the validation AUCs equal both fits' bit
+    for bit. Returns the launches."""
+    import os
+    import tempfile
+
+    from photon_ml_tpu_torch.estimators import GameEstimator
+    from photon_ml_tpu_torch.game.random_effect import re_solver_host_reads
+    from photon_ml_tpu_torch.obs import trace
+    from photon_ml_tpu_torch.obs.metrics import training_metrics
+    from photon_ml_tpu_torch.ops.kernels import csc_column_sums
+
+    configs = game_configs()
+
+    def fit():
+        torch.cuda.synchronize()
+        csc_column_sums.launches = 0
+        re_reads = re_solver_host_reads()
+        t0 = time.perf_counter()
+        result = GameEstimator(
+            task="logistic", n_iterations=GAME_SWEEPS, evaluators=["auc"],
+            device=dev).fit(ctx["train"], ctx["val"], [configs],
+                            dataset_cache=ctx["cache"])[0]
+        torch.cuda.synchronize()
+        return dict(result=result, seconds=time.perf_counter() - t0,
+                    launches=csc_column_sums.launches,
+                    re_reads=re_solver_host_reads() - re_reads)
+
+    off, syncs = counted_syncs(fit)
+    off["syncs"] = syncs
+    before = training_metrics().snapshot()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        trace.start(tdir)
+        try:
+            on, syncs = counted_syncs(fit)
+            on["syncs"] = syncs
+        finally:
+            trace.stop()
+        spans = _spans(tdir)
+    steps = _metric_delta(before, training_metrics().snapshot(),
+                          "photon_train_sweep_steps_total")
+    cd = [(e["args"]["iteration"], e["args"]["coordinate"])
+          for e in spans if e["name"] == "cd.coordinate"]
+    want = [(it, c.name) for it in range(GAME_SWEEPS) for c in configs]
+    for tag, r in (("untraced", off), ("traced", on)):
+        print(f"phase 19 (a) GAME fit, {tag}: {r['seconds']:.3f} s, "
+              f"{r['launches']} launches, random-effect host reads "
+              f"{r['re_reads']}, {r['syncs']} synchronizing CUDA calls; on "
+              f"{smi}")
+    print(f"  phase 12's fit {ctx['seconds']:.3f} s, {ctx['launches']} "
+          f"launches; the traced fit's {len(spans)} spans, {len(cd)} "
+          f"cd.coordinate, training metrics steps {steps}")
+    if cd != want or sum(steps.values()) != len(cd):
+        raise RuntimeError(f"cd.coordinate spans {cd}, metrics {steps}")
+    if not (on["launches"] == off["launches"] == ctx["launches"]
+            and on["re_reads"] == off["re_reads"]
+            and on["syncs"] == off["syncs"] and on["syncs"] > 0):
+        raise RuntimeError("tracing changed the launches, the host reads "
+                           "or the synchronizing calls")
+    for ref in (off["result"], ctx["result"]):
+        result = on["result"]
+        if [r["auc"] for r in result.history] != \
+                [r["auc"] for r in ref.history]:
+            raise RuntimeError("the traced fit's validation AUCs differ")
+        if not torch.equal(result.model["fixed"].model.coefficients.means,
+                           ref.model["fixed"].model.coefficients.means):
+            raise RuntimeError("the traced fit's fixed coefficients differ")
+        for name in ("per_user", "per_item"):
+            for a, b in zip(result.model[name].buckets,
+                            ref.model[name].buckets):
+                if not np.array_equal(np.asarray(a.coefficients),
+                                      np.asarray(b.coefficients)):
+                    raise RuntimeError(f"the traced fit's {name} differs")
+    print("  every coefficient and AUC equal the untraced fit's and phase "
+          "12's bit for bit")
+    return on["launches"]
+
+
+def new_paged_stats():
+    return {"waves": 0, "install_s": {False: [], True: []}}
+
+
+def paged_scores(table, lru, ids, idx, val, stats):
+    """Score one batch through the paged table as the serving tier does:
+    look its entities up, fault the missing through the LRU, install them,
+    and launch ``paged_gather_score`` on the snapshot. Rows whose entity
+    this install evicted again go round once more. Adds the rounds and
+    each install's seconds (split by whether it copied the table) to
+    ``stats``; returns the scores."""
+    from photon_ml_tpu_torch.ops.kernels import paged_gather_score
+
+    out = torch.empty(len(ids), dtype=table.dtype, device=table.device)
+    rows = np.arange(len(ids))
+    for wave in range(MAX_WAVES):
+        sub = [ids[i] for i in rows]
+        _, _, missing = table.lookup(sub)
+        if missing:
+            t0 = time.perf_counter()
+            copies = table.snapshot_copies
+            table.install(lru.get_many(missing))
+            torch.cuda.synchronize()
+            stats["install_s"][table.snapshot_copies > copies].append(
+                time.perf_counter() - t0)
+        buf, slots, missing = table.lookup(sub)
+        gone = set(missing)  # entities this install evicted again
+        done = np.array([e not in gone for e in sub])
+        sel = torch.from_numpy(rows[done]).to(table.device)
+        out[sel] = paged_gather_score(
+            buf, torch.from_numpy(slots[done]).to(table.device),
+            idx.index_select(0, sel), val.index_select(0, sel))
+        stats["waves"] += 1
+        rows = rows[~done]
+        if rows.size == 0:
+            return out
+    raise RuntimeError(f"a batch of {len(ids)} rows did not become "
+                       f"resident in {MAX_WAVES} rounds")
+
+
+def phase_paged(best, dev, smi, peaks):
+    """Phase 19 (b) and (c), inside phase 13's directory: the per-user
+    random coordinate of the saved ``best`` model through
+    ``ModelDirCoefficientStore`` -> ``EntityCoefficientLRU`` (one pass for
+    the known ids, one for the validation users) -> a
+    ``PagedCoefficientTable`` of 16 pages of 256 rows on the card; phase
+    12's validation rows (phase 13's validation files) scored in batches of
+    32 and of 4,096. Gates: the scores within 1e-5 of
+    ``score_random_effect`` on the same coefficients and rows; unknown
+    users exactly 0; a snapshot taken before an evicting install scores
+    bit-equal after it; one kernel launch per round of every batch. Then
+    the kernel against its plain version at these shapes in float32 and
+    float64 and their timings. Returns the kernel's line of the JSON
+    summary."""
+    from photon_ml_tpu_torch.game.scoring import score_game_model
+    from photon_ml_tpu_torch.io.model_io import load_model_index_map
+    from photon_ml_tpu_torch.models import (
+        GameModel, RandomEffectBucket, RandomEffectModel,
+    )
+    from photon_ml_tpu_torch.ops.kernels import paged_gather_score
+    from photon_ml_tpu_torch.serve import (
+        EntityCoefficientLRU, ModelDirCoefficientStore,
+        PagedCoefficientTable, ServingMetrics,
+    )
+    from photon_ml_tpu_torch.types import SparseFeatures
+
+    t_phase = time.perf_counter()
+    imap = load_model_index_map(best, "global")
+    remap = np.array([imap.index_of(f"f{j}") for j in range(GAME_DIM)])
+    if (remap < 0).any() or imap.intercept_index < 0:
+        raise RuntimeError("the saved index map lacks features")
+    idx_raw, users, _, _ = game_arrays(GAME_ROWS + GAME_VAL_ROWS, SEED)
+    idx_np = np.concatenate(
+        [remap[idx_raw[GAME_ROWS:]],
+         np.full((GAME_VAL_ROWS, 1), imap.intercept_index)],
+        axis=1).astype(np.int32)
+    ids = [str(u) for u in users[GAME_ROWS:]]
+    n, k = idx_np.shape
+    store = ModelDirCoefficientStore(best, "per_user", imap)
+    wanted = sorted(set(ids))
+    t0 = time.perf_counter()
+    known = store.known_ids()
+    t_known = time.perf_counter() - t0
+    lru = EntityCoefficientLRU(store.load, len(wanted),
+                               metrics=ServingMetrics(),
+                               batch_loader=store.load_many)
+    t0 = time.perf_counter()
+    entries = lru.warm_entries(wanted)
+    t_load = time.perf_counter() - t0
+    unknown = np.array([e not in known for e in ids])
+    print(f"phase 19 (b): per_user of {best}: {len(known)} entities in the "
+          f"store (ids pass {t_known:.2f} s), {len(wanted)} validation "
+          f"users faulted into the LRU in one load_many pass "
+          f"({t_load:.2f} s); {n} rows of {k} features (39 and the "
+          f"intercept) over dim {imap.size}; {unknown.mean():.4f} of the "
+          f"rows' users unknown to the model")
+
+    # the reference: the same coefficients as a RandomEffectModel, scored
+    # by game/scoring -> game/random_effect.score_random_effect
+    present = [e for e in wanted if entries[e] is not None]
+    width = max(entries[e].local_dim for e in present)
+    coef = np.zeros((len(present), width), np.float32)
+    proj = np.full((len(present), width), -1, np.int32)
+    for r, e in enumerate(present):
+        for g, s_ in entries[e].local_map.items():
+            coef[r, s_] = entries[e].coefficients[s_]
+            proj[r, s_] = g
+    ref_model = GameModel({"per_user": RandomEffectModel(
+        "per_user", [RandomEffectBucket(present, coef, proj)], "logistic",
+        entity_column="user")}, task="logistic")
+    t0 = time.perf_counter()
+    ref = score_game_model(
+        ref_model, {"global": SparseFeatures(torch.from_numpy(idx_np), None,
+                                             imap.size)},
+        {"user": np.array(ids)}, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    print(f"  score_random_effect reference: {time.perf_counter() - t0:.2f} "
+          f"s")
+
+    idx = torch.from_numpy(idx_np).to(dev)
+    val = torch.ones(n, k, dtype=torch.float32, device=dev)
+    by_batch = {}
+    for b in PAGED_BATCHES:
+        table = PagedCoefficientTable(
+            imap.size, pages=PAGED_PAGES, page_rows=PAGED_PAGE_ROWS,
+            dtype=torch.float32, name="per_user", metrics=ServingMetrics(),
+            device=dev)
+        table.warm_device_path()  # the build and a first launch
+        stats = new_paged_stats()
+        torch.cuda.synchronize()
+        paged_gather_score.launches = 0
+        t0 = time.perf_counter()
+        got = torch.cat([paged_scores(table, lru, ids[s:s + b],
+                                      idx[s:s + b], val[s:s + b], stats)
+                         for s in range(0, n, b)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = paged_gather_score.launches
+        diff = float((got - ref).abs().max())
+        zeros = bool((got[torch.from_numpy(unknown).to(dev)] == 0).all())
+        st = table.stats()
+        ins = {c: (len(v), float(np.median(v)) * 1e3 if v else None)
+               for c, v in stats["install_s"].items()}
+        print(f"  B={b}: {-(-n // b)} batches, {launches} launches "
+              f"({stats['waves']} rounds), {seconds:.3f} s, "
+              f"{n / seconds:.1f} rows/s; max |paged - reference| "
+              f"{diff:.3e} (tol {TOL_PAGED_SCORE}), unknown users 0: "
+              f"{zeros}; table {st}, snapshot copies "
+              f"{table.snapshot_copies}; installs without / with a copy: "
+              f"{ins[False][0]} / {ins[True][0]}, median "
+              f"{_ms(ins[False][1])} / {_ms(ins[True][1])} each "
+              f"(synchronised); on {smi}")
+        if launches != stats["waves"] or launches < -(-n // b):
+            raise RuntimeError(f"{launches} launches for {stats['waves']} "
+                               "rounds")
+        if not (diff <= TOL_PAGED_SCORE and zeros and st["page_evictions"]):
+            raise RuntimeError(f"paged scores at B={b}: max diff {diff}, "
+                               f"unknown zero {zeros}, evictions "
+                               f"{st['page_evictions']}")
+        by_batch[b] = dict(launches=launches, rounds=stats["waves"],
+                           seconds=seconds, max_abs_diff=diff,
+                           page_evictions=st["page_evictions"],
+                           snapshot_copies=table.snapshot_copies,
+                           installs=st["installs"],
+                           install_ms_median={str(c): m for c, (_, m)
+                                              in ins.items()})
+
+    # a snapshot taken before an evicting install scores bit-equal after
+    snap_ids = ids[:PAGED_BATCHES[0]]
+    paged_scores(table, lru, snap_ids, idx[:len(snap_ids)],
+                 val[:len(snap_ids)], new_paged_stats())
+    buf, slots, _ = table.lookup(snap_ids)
+    slots_t = torch.from_numpy(slots).to(dev)
+    sidx, sval = idx[:len(snap_ids)], val[:len(snap_ids)]
+    before = paged_gather_score(buf, slots_t, sidx, sval)
+    evictions = table.page_evictions
+    fresh = [e for e in wanted if e not in set(table.resident_ids())
+             and entries[e] is not None][:PAGED_PAGE_ROWS * 2]
+    table.install({e: entries[e] for e in fresh})
+    after = paged_gather_score(buf, slots_t, sidx, sval)
+    if table.page_evictions == evictions or table.device_buffer is buf \
+            or not torch.equal(before, after):
+        raise RuntimeError("a snapshot changed under an evicting install")
+    print(f"  a snapshot's {len(snap_ids)} scores equal bit for bit after an "
+          f"install of {len(fresh)} entities that evicted "
+          f"{table.page_evictions - evictions} pages")
+    refresh_ms = cuda_ms(lambda: table.device_buffer.clone(), 5)
+    print(f"  one copy of the table ({table.device_buffer.numel() * 4 / 1e9:.3f}"
+          f" GB) on the device: {refresh_ms:.4f} ms; phase 19 (b) "
+          f"{time.perf_counter() - t_phase:.1f} s so far")
+
+    # (c) the kernel against its plain version at these shapes, each
+    # batch's users made resident first, as a scored batch finds them
+    shapes, err = {}, 0.0
+    for b in PAGED_BATCHES:
+        paged_scores(table, lru, ids[:b], idx[:b], val[:b],
+                     new_paged_stats())
+        buf, sl, _ = table.lookup(ids[:b])
+        sl = torch.from_numpy(sl).to(dev)
+        for dtype in (torch.float32, torch.float64):
+            t = time_paged(buf.to(dtype), sl, idx[:b], val[:b].to(dtype),
+                           peaks, smi)
+            err = max(err, t["max_abs_err"])
+            shapes[f"{str(dtype).split('.')[1]}_b{b}"] = t
+    main = shapes[f"float32_b{PAGED_BATCHES[-1]}"]
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s in phases 19 "
+          "(b) and (c)")
+    return {
+        "name": "paged_gather_score",
+        "route": "cuda",
+        "source": "photon_ml_tpu_torch/ops/csrc/paged_gather_score.cu",
+        "replaces": "photon_ml_tpu/ops/pallas_kernels.py:142",
+        "launches": sum(v["launches"] for v in by_batch.values()),
+        "launches_by_path": {f"paged_scoring_b{b}": v["launches"]
+                             for b, v in by_batch.items()},
+        "max_abs_err": err,
+        "tol": f"{PAGED_EPS_GATE} eps * sum_j |table[slot, idx_j] * val_j| "
+               "per row",
+        "ms": main["kernel_ms"],
+        "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "torch.nn.functional.embedding_bag(slot * D + idx, "
+                   "table.view(-1, 1), per_sample_weights=val, mode='sum')",
+        "shapes": shapes,
+        "paged_scoring": by_batch,
+        "table_copy_ms": refresh_ms,
+    }
+
+
+def time_paged(table, slots, idx, val, peaks, smi):
+    """paged_gather_score against its plain version on one batch, with its
+    values and with random ones (gate: PAGED_EPS_GATE eps of the row's sum
+    of |terms|, unknown rows 0, two calls bit-identical), then its, the plain
+    version's and embedding_bag's times (per call and on the device's own
+    clock) beside the bound for the same work."""
+    from photon_ml_tpu_torch.ops.kernels import (
+        paged_gather_score, paged_gather_score_plain,
+    )
+
+    b, k = idx.shape
+    launches = paged_gather_score.launches
+    flat = (slots.clamp(min=0).to(torch.int64)[:, None] * table.shape[1]
+            + idx.to(torch.int64))
+    column = table.view(-1, 1)
+    # the batch as served (values 1), then random values of the table's
+    # dtype: a kernel that misread val would pass on ones alone
+    gen = torch.Generator(device=table.device).manual_seed(SEED)
+    err = 0.0
+    for vals in (val, torch.randn(val.shape, generator=gen, dtype=val.dtype,
+                                  device=val.device)):
+        got = paged_gather_score(table, slots, idx, vals)
+        torch.cuda.synchronize()
+        want = paged_gather_score_plain(table, slots, idx, vals)
+        terms = (column.view(-1)[flat].abs() * vals.abs()).sum(dim=1)
+        gate = PAGED_EPS_GATE * torch.finfo(table.dtype).eps * terms
+        diff = float((got - want).abs().max())
+        err = max(err, diff)
+        if not (bool(((got - want).abs() <= gate).all())
+                and bool((got[slots < 0] == 0).all())
+                and torch.equal(got, paged_gather_score(table, slots, idx,
+                                                        vals))):
+            raise RuntimeError(f"paged_gather_score differs from its plain "
+                               f"version at B={b}, {table.dtype}: {diff:.3e}")
+
+    def library():
+        return torch.nn.functional.embedding_bag(
+            flat, column, per_sample_weights=val, mode="sum")
+
+    reps = 50
+    kernel = [cuda_ms(lambda: paged_gather_score(table, slots, idx, val),
+                      reps)]
+    plain_ms = cuda_ms(lambda: paged_gather_score_plain(table, slots, idx,
+                                                        val), reps)
+    library_ms = cuda_ms(library, reps)
+    kernel.append(cuda_ms(lambda: paged_gather_score(table, slots, idx, val),
+                          reps))
+    dev_ms = {name: device_ms(fn, reps) for name, fn in (
+        ("kernel", lambda: paged_gather_score(table, slots, idx, val)),
+        ("library", library))}
+    # by name: a comparison, not a path
+    checked = paged_gather_score.launches - launches
+    paged_gather_score.launches = launches
+    # each input read once, each output written once: the slots, indices
+    # and values, the table elements the resident rows gather, the scores
+    elem = table.element_size()
+    resident = int((slots >= 0).sum())
+    nbytes = 4 * b + (4 + elem) * b * k + elem * resident * k + elem * b
+    ops = 2 * resident * k
+    bw, f32_rate, f64_rate = peaks
+    rate = f32_rate if table.dtype == torch.float32 else f64_rate
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
+    t = {"b": b, "k": k, "dtype": str(table.dtype), "resident_rows": resident,
+         "bytes": nbytes, "kernel_ms": sum(kernel) / 2,
+         "kernel_ms_runs": kernel, "plain_ms": plain_ms,
+         "library_ms": library_ms, "device_ms": dev_ms["kernel"],
+         "library_device_ms": dev_ms["library"],
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+         "max_abs_err": err, "checked_launches": checked}
+    print(f"paged_gather_score B={b} k={k} {table.dtype} ({resident} rows "
+          f"resident): max |kernel - plain| {err:.3e} (gate "
+          f"{PAGED_EPS_GATE} eps sum |terms|); kernel {kernel[0]:.4f} / "
+          f"{kernel[1]:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag "
+          f"{library_ms:.4f} ms; device time per call: kernel "
+          f"{_ms(dev_ms['kernel'])}, embedding_bag "
+          f"{_ms(dev_ms['library'])}; bound {t['bound_ms']:.6f} ms "
+          f"({nbytes / 1e6:.3f} MB by {t['bound_by']}) on {smi}")
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3344,12 +3953,14 @@ def main() -> int:
     launches_by_path.update(phase_stream_launches)
     launches_by_path["glm_driver"], driver_timing, ooc_timing, (
         launches_by_path["glm_driver_ooc"], mp_driver_launches,
-        recovery_driver_launches) = phase_driver(
-        dev, smi, peaks, gen,
-        then=lambda root, train_dir, val_dir: (
-            phase_glm_ooc(root, train_dir, val_dir, dev, smi),
-            phase_mp_driver(train_dir, val_dir, root, dev, smi),
-            phase_recovery_driver(train_dir, val_dir, root, dev, smi)))
+        recovery_driver_launches, (traced_driver_launches, _)) = \
+        phase_driver(
+            dev, smi, peaks, gen,
+            then=lambda root, train_dir, val_dir: (
+                phase_glm_ooc(root, train_dir, val_dir, dev, smi),
+                phase_mp_driver(train_dir, val_dir, root, dev, smi),
+                phase_recovery_driver(train_dir, val_dir, root, dev, smi),
+                phase_trace_driver(root, train_dir, val_dir, dev, smi)))
     path_launches, path_timing = phase_path(obj, batch, csc, smi, gen, dev,
                                             peaks)
     launches_by_path.update(path_launches)
@@ -3358,7 +3969,8 @@ def main() -> int:
                   stream_timing["max_abs_err"])
     phase_re_solve(dev, gen, smi)
     launches_by_path["game_cd"], game_ctx = phase_game(dev, smi)
-    launches_by_path["game_driver"] = phase_game_driver(dev, smi)
+    launches_by_path["game_driver"], paged_kernel = phase_game_driver(
+        dev, smi, then=lambda best: phase_paged(best, dev, smi, peaks))
     launches_by_path["game_cd_streaming"] = phase_game_stream(game_ctx, dev,
                                                               smi)
     # phase 17: multi-process
@@ -3388,6 +4000,15 @@ def main() -> int:
     }
     print(f"phase 18: {time.perf_counter() - t_rec:.2f} s (leg (b) ran "
           "inside phase 9's directory)")
+    # phase 19: tracing on the training paths (the driver leg ran inside
+    # phase 9's directory) and the paged table (inside phase 13's)
+    t_obs = time.perf_counter()
+    launches_by_path["traced"] = {
+        "glm_driver_path_screen_strong": traced_driver_launches,
+        "game_cd": phase_trace_game(game_ctx, dev, smi)}
+    print(f"phase 19: {time.perf_counter() - t_obs:.2f} s (the driver leg "
+          "ran inside phase 9's directory, legs (b) and (c) inside phase "
+          "13's)")
 
     # phases 5-18 ran no multiply_prefix_sum but the named ones
     mps_on_paths = multiply_prefix_sum.launches - mps_start - EXPLICIT_MPS[0]
@@ -3440,7 +4061,7 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "library": "torch.cumsum in float64",
-    }]}))
+    }, paged_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

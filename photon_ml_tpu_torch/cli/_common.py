@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -119,3 +120,41 @@ def write_feature_summary(output_dir, summary, imap: IndexMap,
 
     write_avro_file(os.path.join(output_dir, name), records(),
                     FEATURE_SUMMARIZATION_SCHEMA)
+
+
+def add_trace_args(p: argparse.ArgumentParser) -> None:
+    """The training drivers' observability flags (as the JAX drivers')."""
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of training here "
+                        "(host activity, and the card's kernels on CUDA; "
+                        "one Chrome-trace JSON file per process)")
+    p.add_argument("--trace-dir", default=None,
+                   help="write photon-trace span files here (one "
+                        "trace-rankN.json per process, Chrome-trace "
+                        "format; merge with `python -m "
+                        "photon_ml_tpu_torch.obs.trace_cli merge`). "
+                        "Also honors PHOTON_TRACE / PHOTON_TRACE_SAMPLE")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="fraction of traces recorded under --trace-dir")
+
+
+@contextlib.contextmanager
+def traced(args):
+    """Configure the structured log and, with ``--trace-dir`` (or
+    ``PHOTON_TRACE``), the span tracer for one driver run. Every exit path,
+    device loss's exit 75 included, exports the trace files; only a tracer
+    this run started is stopped (the simulated harness's ranks run the
+    driver in one process and share one)."""
+    from photon_ml_tpu_torch.obs import logging as obs_logging
+    from photon_ml_tpu_torch.obs import trace as obs_trace
+
+    obs_logging.configure()
+    if args.trace_dir:
+        started = obs_trace.start(args.trace_dir, sample=args.trace_sample)
+    else:
+        started = obs_trace.maybe_start_from_env()
+    try:
+        yield
+    finally:
+        if started is not None:
+            obs_trace.stop()

@@ -46,10 +46,12 @@ checkpoint, and exits 75; the same command with ``--auto-resume`` adopts
 that checkpoint as its warm start. The marker is fingerprinted against the
 inputs and consumed only when a run completes.
 
-Flags of the JAX driver that select parts of the port not written yet
-(the registry, profiling) are accepted by the parser and raise, naming the
-ROADMAP item that ports them; the settings that only refine those parts
-(``--trace-sample``) are not accepted.
+``--trace-dir`` (or ``PHOTON_TRACE``) writes the run's trace spans, one
+``trace-rankN.json`` per process, ``--trace-sample`` the fraction of
+traces kept; ``--profile-dir`` a ``torch.profiler`` trace of training.
+``--publish-to`` selects a part of the port not written yet (the
+registry): it is accepted by the parser and raises, naming the ROADMAP
+item that ports it.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
@@ -77,8 +79,9 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli._common import (
-    json_arg, load_input_columns, log_path, positive_int, runtime_info,
-    start_processes, stop_processes, tol_schedule, write_feature_summary,
+    add_trace_args, json_arg, load_input_columns, log_path, positive_int,
+    runtime_info, start_processes, stop_processes, tol_schedule, traced,
+    write_feature_summary,
 )
 from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
@@ -106,17 +109,14 @@ from photon_ml_tpu_torch.parallel.multihost import (
 from photon_ml_tpu_torch.parallel.recovery import RecoveryManager
 from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
 from photon_ml_tpu_torch.utils import (
-    PhotonLogger, Timed, is_device_loss, resolve_dtype,
+    PhotonLogger, Timed, is_device_loss, profile_trace, resolve_dtype,
 )
 
-_OBSERVABILITY = "20 (observability)"
 # flags of the JAX driver whose code paths are not ported yet, by the
 # ROADMAP Queue 1 item that ports them; each raises when set to anything
 # but its default
 _DEFERRED = {
     "publish_to": "19 (serving and lifecycle)",
-    "profile_dir": _OBSERVABILITY,
-    "trace_dir": _OBSERVABILITY,
 }
 
 
@@ -263,10 +263,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="commit a recovery snapshot every N CD sweeps "
                         "(with --max-rank-failures > 0): a failure rolls "
                         "back at most N sweeps")
+    add_trace_args(p)
     # accepted for parity with the JAX driver; each raises (_DEFERRED)
     p.add_argument("--publish-to", default=None)
-    p.add_argument("--profile-dir", default=None)
-    p.add_argument("--trace-dir", default=None)
     return p
 
 
@@ -385,7 +384,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     _check_deferred(args, parser)
-    return _run(args)
+    with traced(args):
+        return _run(args)
 
 
 def _build_index_maps(args, columns, shards) -> Dict[str, IndexMap]:
@@ -635,7 +635,7 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
     # at the newest checkpoint and exit 75 (EX_TEMPFAIL); a supervisor
     # reruns the same command with --auto-resume
     try:
-        with Timed(logger, "training"):
+        with Timed(logger, "training"), profile_trace(args.profile_dir):
             results = estimator.fit(
                 train, validation, config_grid=grid, warm_start=warm,
                 locked=args.locked_coordinates, checkpoint_callback=ckpt,

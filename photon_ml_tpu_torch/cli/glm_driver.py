@@ -13,7 +13,10 @@ GPU; ``--device cpu`` runs everything on the CPU). The column-sorted view
 behind the sparse gradient is built once for the whole grid, and every
 gradient of every lambda's fit goes through ``ops.kernels``'s
 ``csc_column_sums`` (the hand-written CUDA kernel on the card, its
-plain version on the CPU).
+plain version on the CPU). Each ``lambda_trained`` event carries what
+its fit cost the card: ``kernel_launches`` (of that kernel; not for a
+plain streamed fit, whose ``stream`` record counts its passes) and
+``host_reads`` (device-to-host reads).
 
 ``--path-screen strong|safe`` walks the grid through
 ``optimize.path.PathSolver``: screened restricted solves, each certified by
@@ -49,10 +52,10 @@ refuses it, and it is consumed only when the grid completes.
 coordinated abort (every rank alive) up to N times
 (``parallel.recovery.retry_collective``).
 
-Flags of the JAX driver that select parts of the port not written yet
-(profiling) are accepted by the parser and raise, naming the ROADMAP item
-that ports them; the settings that only refine those parts are not
-accepted.
+``--trace-dir`` (or ``PHOTON_TRACE``) writes the run's trace spans, one
+``trace-rankN.json`` per process (a ``glm.path_lambda`` span per lambda of
+a screened path), ``--trace-sample`` the fraction of traces kept;
+``--profile-dir`` a ``torch.profiler`` trace of training.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.glm_driver \\
@@ -75,8 +78,8 @@ import torch
 
 from photon_ml_tpu_torch import diagnostics
 from photon_ml_tpu_torch.cli._common import (
-    log_path, positive_int, runtime_info, start_processes, stop_processes,
-    tol_schedule, write_feature_summary,
+    add_trace_args, log_path, positive_int, runtime_info, start_processes,
+    stop_processes, tol_schedule, traced, write_feature_summary,
 )
 from photon_ml_tpu_torch.evaluation import get_evaluator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
@@ -127,16 +130,8 @@ from photon_ml_tpu_torch.types import (
     LabeledBatch, SparseFeatures, make_batch, resolve_device,
 )
 from photon_ml_tpu_torch.utils import (
-    PhotonLogger, Timed, is_device_loss, resolve_dtype,
+    PhotonLogger, Timed, is_device_loss, profile_trace, resolve_dtype,
 )
-
-# flags of the JAX driver whose code paths are not ported yet, by the
-# ROADMAP Queue 1 item that ports them; each raises when set to anything
-# but its default
-_DEFERRED = {
-    "profile_dir": "20 (observability)",
-    "trace_dir": "20 (observability)",
-}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -251,18 +246,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "driver: the grid's recovery unit is one lambda "
                         "(each finished lambda is persisted to the resume "
                         "marker), so there is no finer unit to select")
-    # accepted for parity with the JAX driver; each raises (_DEFERRED)
-    p.add_argument("--profile-dir", default=None)
-    p.add_argument("--trace-dir", default=None)
+    add_trace_args(p)
     return p
-
-
-def _check_deferred(args, parser: argparse.ArgumentParser) -> None:
-    for dest, item in _DEFERRED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to the PyTorch driver "
-                             f"yet: ROADMAP Queue 1 item {item}")
 
 
 def _read(paths, fmt, index_map: Optional[IndexMap], add_intercept):
@@ -327,10 +312,9 @@ def _device_batch(host: HostSparse, labels, offsets, weights, dtype, dev):
 
 
 def main(argv: Sequence[str] | None = None) -> int:
-    parser = build_arg_parser()
-    args = parser.parse_args(argv)
-    _check_deferred(args, parser)
-    return _run(args)
+    args = build_arg_parser().parse_args(argv)
+    with traced(args):
+        return _run(args)
 
 
 def _run(args) -> int:
@@ -613,7 +597,7 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
             path_solver.seed_state(lam_done, res_done.w)
 
     try:
-        with Timed(logger, "training"):
+        with Timed(logger, "training"), profile_trace(args.profile_dir):
             for li in range(len(results), len(args.reg_weights)):
                 lam = args.reg_weights[li]
                 # per-lambda injection point: kill-and-rerun tests drive
@@ -646,6 +630,9 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
                         precomputed_csc=grid_csc, mesh=mesh,
                     )
 
+                spent = (None if path_solver is None else
+                         (path_solver.kernel_launches,
+                          path_solver.host_reads))
                 if args.max_rank_failures > 0:
                     # a transient coordinated abort (every rank alive)
                     # re-runs this lambda from the same warm start; anything
@@ -677,6 +664,17 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
                         float(v) for v in loss_history if np.isfinite(v)
                     ],
                 }
+                # what the lambda cost the card: transpose-kernel
+                # launches and device-to-host reads (the path solver's
+                # include its screening passes)
+                if spent is not None:
+                    diag["kernel_launches"] = \
+                        path_solver.kernel_launches - spent[0]
+                    diag["host_reads"] = path_solver.host_reads - spent[1]
+                else:
+                    diag["host_reads"] = int(res.host_syncs)
+                    if res.kernel_launches is not None:
+                        diag["kernel_launches"] = res.kernel_launches
                 if res.stream_stats is not None:
                     # this lambda's decode-wait / transfer / compute-stall
                     # seconds over its whole pass sequence

@@ -50,6 +50,8 @@ tables cross the wire only at save points (``allgather_objects``), so
 checkpoints and saved models keep the single-file layout.
 ``entity_table_budget_bytes`` fails a coordinate whose local table is
 over it before the first sweep. Every coordinate step runs inside a
+``cd.coordinate`` trace span and records its solve, eval and exchange
+seconds in the training metrics (``obs``). Every step runs inside a
 ``resilience.CollectiveGuard`` (with the ``cd.step`` fault site), so one
 process's failure raises ``PeerFailure`` on every process; with
 ``recovery`` (a ``parallel.recovery.RecoveryManager``) each sweep starts
@@ -84,6 +86,8 @@ from photon_ml_tpu_torch.game.random_effect import (
     _check_re_optimizer, score_random_effect, train_random_effect,
 )
 from photon_ml_tpu_torch.game.sampling import down_sample
+from photon_ml_tpu_torch.obs import metrics as obs_metrics
+from photon_ml_tpu_torch.obs import trace as obs_trace
 from photon_ml_tpu_torch.models import (
     Coefficients, FixedEffectModel, GameModel, GeneralizedLinearModel,
     RandomEffectBucket, RandomEffectModel,
@@ -909,7 +913,9 @@ class CoordinateDescent:
                 # than one process: the guard turns any process's local
                 # failure inside the step into PeerFailure on every process
                 # instead of leaving the others in the next collective
-                with CollectiveGuard(f"cd:{it}:{cfg.name}"):
+                with obs_trace.span("cd.coordinate", cat="train",
+                                    coordinate=cfg.name, iteration=it), \
+                        CollectiveGuard(f"cd:{it}:{cfg.name}"):
                     fault_injection.check("cd.step")
                     if cfg.name not in locked:
                         if cfg.coordinate_type == "fixed":
@@ -943,6 +949,9 @@ class CoordinateDescent:
                     record["seconds"] = time.time() - t0
                     record["score_delta"] = score_delta
                     sweep_deltas[cfg.name] = score_delta
+                obs_metrics.training_metrics().record_step(
+                    cfg.name, record["solve_seconds"],
+                    record["eval_seconds"], record["comm_seconds"])
                 _log.log(logging.INFO if self.verbose else logging.DEBUG,
                          "cd.step %s", record)
                 history.append(record)

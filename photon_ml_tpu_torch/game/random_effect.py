@@ -32,11 +32,17 @@ and the coefficients, variances and convergence flags are all-gathered in
 rank order, so every rank holds the whole model. Entities are
 independent, so the sharded solve equals the unsharded one entity by
 entity.
+
+In place of the JAX module's ``re_solver_compile_count`` (the XLA
+executables its bucket solvers built), :func:`re_solver_host_reads`
+counts the device-to-host reads the bucket solves made. They launch no
+hand-written kernel: their contractions and Cholesky solves are torch's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +61,22 @@ from photon_ml_tpu_torch.parallel.mesh import all_reduce_sum
 from photon_ml_tpu_torch.types import resolve_device
 
 RE_OPTIMIZERS = ("lbfgs", "owlqn", "tron", "newton")
+
+_HOST_READS = [0]
+_HOST_READS_LOCK = threading.Lock()
+
+
+def re_solver_host_reads() -> int:
+    """Device-to-host reads of every random-effect bucket solve in this
+    process so far (Newton: one per iteration and one at the end of its
+    loop; the batched L-BFGS, OWL-QN and TRON: their ``host_syncs``)."""
+    with _HOST_READS_LOCK:
+        return _HOST_READS[0]
+
+
+def _note_host_reads(n: int) -> None:
+    with _HOST_READS_LOCK:
+        _HOST_READS[0] += int(n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +229,9 @@ def _newton_dense_solver(local_dim: int, task: str, config: OptimizerConfig,
         active = torch.ones(E, dtype=torch.bool, device=dev)
         conv_seen = torch.zeros(E, dtype=torch.bool, device=dev)
         iters = torch.zeros(E, dtype=torch.int32, device=dev)
+        reads = 0
         while bool(active.any()):  # the iteration's one host read
+            reads += 1
             g, H = obj.grad_hess(W)
             step = _spd_solve(H, g[..., None])[..., 0]
             f_tries = torch.stack([obj.value(W - a * step) for a in alphas])
@@ -238,6 +262,7 @@ def _newton_dense_solver(local_dim: int, task: str, config: OptimizerConfig,
             iters = iters + active.to(iters.dtype)
             conv_seen = conv_seen | conv
             active = active & ~conv & any_ok & (iters < max_iters)
+        _note_host_reads(reads + 1)
         var = _variances(obj, W, compute_variance)
         return W, var, conv_seen, iters
 
@@ -286,6 +311,7 @@ def _solver_for_bucket(local_dim: int, task: str, optimizer: str,
             res = batched.tron(obj.value_and_grad, w0, obj.hvp, config)
         else:
             res = batched.lbfgs(obj.value_and_grad, w0, config)
+        _note_host_reads(res.host_syncs)
         var = _variances(obj, res.w, compute_variance)
         return res.w, var, res.converged, res.iterations
 

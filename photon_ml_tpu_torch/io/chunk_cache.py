@@ -25,8 +25,8 @@ The cache holds the chunks only: each chunk's column-sorted view is built
 on the device after the chunk lands (``parallel/streaming.py``), so the
 format is the JAX package's. Fault-injection sites: ``chunk_cache.spill``
 (before each chunk's write to the staging directory) and
-``chunk_cache.commit`` (before the staging directory's rename). Not here:
-the chunk-cache pass counters of the training metrics, ROADMAP item 20.
+``chunk_cache.commit`` (before the staging directory's rename). Every
+pass ticks the training metrics' warm, cold or fallthrough counter.
 """
 
 from __future__ import annotations
@@ -321,11 +321,16 @@ class ChunkCacheSource:
                 shutil.rmtree(staging, ignore_errors=True)
 
     def __iter__(self) -> Iterator[HostChunk]:
+        from photon_ml_tpu_torch.obs.metrics import training_metrics
+
         if self.enabled and self._try_open_warm():
             self.warm_passes += 1
+            training_metrics().record_chunk_cache_pass("warm")
             return self._iter_warm()
         if not self.enabled:
             self.fallthrough_passes += 1
+            training_metrics().record_chunk_cache_pass("fallthrough")
             return iter(self._src)
         self.cold_passes += 1
+        training_metrics().record_chunk_cache_pass("cold")
         return self._iter_cold()

@@ -95,6 +95,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 8 + [i64, i64, i64, ptr]
         fn.restype = ctypes.c_int
+    for name in ("photon_paged_gather_score_f32",
+                 "photon_paged_gather_score_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 5 + [i64, i64, i64, ptr]
+        fn.restype = ctypes.c_int
     for name in ("photon_mps_tile", "photon_csc_range", "photon_csc_sub"):
         fn = getattr(lib, name)
         fn.argtypes = []

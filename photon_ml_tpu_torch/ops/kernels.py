@@ -15,6 +15,11 @@ prefix sum plus per-tile totals, the pair ``types.blocked_boundary_combine``
 consumes (``csrc/multiply_prefix_sum.cu``). No path runs it; the tests
 hold it against the JAX package's kernel.
 
+``paged_gather_score`` is the serving tier's per-row random-effect score
+against a device-resident paged entity table (``serve/paged_table.py``),
+the counterpart of the JAX module's plain-``jnp`` ``paged_gather_score``
+(``csrc/paged_gather_score.cu``).
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it takes its plain PyTorch version below, which the tests and
 ``chip_smoke.py`` hold the kernel against.
@@ -250,3 +255,92 @@ def csc_transpose_apply_kernel(csc: CSCTranspose,
     own float64 rounding and one rounding to ``d``'s dtype). Implicit ones
     pass no values, so the kernel reads no ones vector."""
     return csc_column_sums(csc, d)
+
+
+def paged_gather_score_plain(table: torch.Tensor, slots: torch.Tensor,
+                             indices: torch.Tensor,
+                             values: torch.Tensor) -> torch.Tensor:
+    """Plain version: one flat ``index_select`` over ``slot * D + index``
+    (int64) and a row sum, then 0 selected where ``slots < 0``."""
+    dim = table.shape[1]
+    flat = (slots.clamp(min=0).to(torch.int64)[:, None] * dim
+            + indices.to(torch.int64))
+    picked = table.reshape(-1).index_select(0, flat.reshape(-1))
+    score = (picked.view(flat.shape) * values).sum(dim=-1)
+    return torch.where(slots >= 0, score, torch.zeros((), dtype=table.dtype,
+                                                      device=table.device))
+
+
+def _check_paged(table, slots, indices, values):
+    if table.dim() != 2 or table.dtype not in _FLOATS \
+            or not table.is_contiguous():
+        raise ValueError("table must be a contiguous [S, D] float32 or "
+                         f"float64 tensor, got {tuple(table.shape)} "
+                         f"{table.dtype}")
+    if slots.dim() != 1 or slots.dtype != torch.int32 \
+            or not slots.is_contiguous():
+        raise ValueError("slots must be a contiguous 1-D int32 tensor, got "
+                         f"{tuple(slots.shape)} {slots.dtype}")
+    b = slots.shape[0]
+    if (indices.dim() != 2 or indices.shape[0] != b
+            or indices.dtype != torch.int32 or not indices.is_contiguous()):
+        raise ValueError("indices must be a contiguous [B, k] int32 tensor "
+                         f"with B = {b}, got {tuple(indices.shape)} "
+                         f"{indices.dtype}")
+    if (values.shape != indices.shape or values.dtype != table.dtype
+            or not values.is_contiguous()):
+        raise ValueError("values must be contiguous, of indices' shape and "
+                         f"of the table's dtype: {tuple(values.shape)} "
+                         f"{values.dtype} vs {tuple(indices.shape)}, "
+                         f"{table.dtype}")
+    for t in (slots, indices, values):
+        if t.device != table.device:
+            raise ValueError(f"the batch lies on {t.device}, the table on "
+                             f"{table.device}")
+
+
+def _launch_paged(table, slots, indices, values):
+    from photon_ml_tpu_torch.ops.kernel_build import load_library
+
+    lib = load_library()
+    b, k = indices.shape
+    out = torch.empty(b, dtype=table.dtype, device=table.device)
+    if b == 0:
+        return out  # nothing to launch
+    fn = (lib.photon_paged_gather_score_f32 if table.dtype == torch.float32
+          else lib.photon_paged_gather_score_f64)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), slots.data_ptr(), indices.data_ptr(),
+                 values.data_ptr(), out.data_ptr(), b, k, table.shape[1],
+                 stream)
+    if err != 0:
+        raise launch_error(lib, err, "paged_gather_score kernel launch")
+    paged_gather_score.launches += 1
+    return out
+
+
+def paged_gather_score(table: torch.Tensor, slots: torch.Tensor,
+                       indices: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+    """Per-row margin of a batch against a paged entity table:
+    ``out[i] = sum_j table[slots[i], indices[i, j]] * values[i, j]``,
+    exactly 0 where ``slots[i] < 0`` (no resident entity model).
+
+    ``table`` is the paged coefficient buffer ``[S, D]`` (``S = pages *
+    page_rows``), float32 or float64; ``slots`` int32 ``[B]``, each
+    nonnegative one below ``S``; ``indices`` int32 ``[B, k]`` in ``[0, D)``
+    and ``values`` ``[B, k]`` of the table's dtype, all contiguous on one
+    device. The offsets are formed in 64 bits. CUDA tensors go to the
+    kernel (one launch, the products summed in index order), CPU tensors
+    to the plain version; anything else raises.
+    ``paged_gather_score.launches`` counts the kernel's launches."""
+    _check_paged(table, slots, indices, values)
+    if table.device.type == "cuda":
+        return _launch_paged(table, slots, indices, values)
+    if table.device.type == "cpu":
+        return paged_gather_score_plain(table, slots, indices, values)
+    raise ValueError(f"unsupported device {table.device}")
+
+
+paged_gather_score.launches = 0

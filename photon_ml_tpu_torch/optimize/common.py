@@ -110,7 +110,9 @@ class OptimizationResult(NamedTuple):
     ``solver_tolerance`` and ``screened_dim`` are set by the path solver
     (``optimize/path.py``): the tolerance the fit ran to and the width of
     the problem it finally solved. ``stream_stats`` is a streamed fit's
-    pipeline accounting (``parallel.streaming.StreamStats.as_dict``)."""
+    pipeline accounting (``parallel.streaming.StreamStats.as_dict``).
+    ``kernel_launches`` is set by ``parallel.data_parallel.fit_shard``:
+    the ``ops.kernels.csc_column_sums`` launches the fit made."""
 
     w: torch.Tensor
     value: torch.Tensor
@@ -123,6 +125,7 @@ class OptimizationResult(NamedTuple):
     solver_tolerance: Optional[float] = None
     screened_dim: Optional[int] = None
     stream_stats: Optional[dict] = None
+    kernel_launches: Optional[int] = None
 
 
 def _clamped_tol(tol, dtype, device) -> torch.Tensor:

@@ -39,6 +39,14 @@ Normalization does not compose with screening (the virtual shift couples
 every column through the margin adjustment), so :class:`PathSolver`
 refuses the combination.
 
+Every lambda runs inside a ``glm.path_lambda`` trace span and adds its
+screening work to the training metrics (``obs``). In place of the JAX
+solver's ``compiled_kernel_count`` (XLA executables, which eager torch
+does not build), :class:`PathSolver` counts what a walk costs the card:
+``kernel_launches`` (``ops.kernels.csc_column_sums`` launches) and
+``host_reads`` (device-to-host reads: its solves' and its own), both
+running totals over every ``solve``.
+
 The out-of-core mode (``chunks=`` host chunks, e.g. a disk-backed
 ``io.stream_source.AvroChunkSource``) runs every solve through
 ``parallel.streaming.fit_streaming``: a restricted solve streams
@@ -58,6 +66,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.obs import metrics as obs_metrics
+from photon_ml_tpu_torch.obs import trace as obs_trace
+from photon_ml_tpu_torch.ops import kernels
 from photon_ml_tpu_torch.ops.objective import GLMObjective, make_objective
 from photon_ml_tpu_torch.ops.regularization import (
     RegularizationContext, kkt_slack, screening_threshold,
@@ -221,6 +232,8 @@ class PathSolver:
         self._states: List[_PathState] = []
         self._init_probe = None  # (w_init, g_init, lam1_max), lazy
         self.total_iterations = 0  # across every solve
+        self.kernel_launches = 0  # csc_column_sums launches, every solve
+        self.host_reads = 0  # device-to-host reads, every solve
         # one restricted objective serves every bucket: the intercept sits
         # in restricted slot 0 whatever the width
         self._robj = make_objective(
@@ -325,6 +338,7 @@ class PathSolver:
         if self._init_probe is None:
             g0 = self._full_grad(self._w_init)
             lam1_max = float(torch.max(torch.abs(g0) * self._penalized))
+            self.host_reads += 1
             self._init_probe = (self._w_init, g0, lam1_max)
         return self._init_probe
 
@@ -358,11 +372,13 @@ class PathSolver:
         """(cols, lut) for a member mask, the intercept pinned to
         restricted slot 0."""
         ii = self._objective.intercept_index
-        cols = torch.nonzero(member).reshape(-1)
+        cols = torch.nonzero(member).reshape(-1)  # its size: a host read
+        self.host_reads += 1
         if ii >= 0:
             cols = torch.cat([torch.tensor([ii], dtype=cols.dtype,
                                            device=cols.device),
                               cols[cols != ii]])
+            self.host_reads += 1  # the mask's count
         lut = torch.zeros(self._dim, dtype=torch.int32, device=self._dev)
         lut[cols] = torch.arange(cols.shape[0], dtype=torch.int32,
                                  device=self._dev)
@@ -400,31 +416,37 @@ class PathSolver:
             rchunks = _RestrictedChunks(
                 self._chunks, member.cpu().numpy(), lut.cpu().numpy(),
                 torch.empty((), dtype=self._dtype).numpy().dtype)
-            return fit_streaming(
+            self.host_reads += 2
+            return self._counted(fit_streaming(
                 self._robj, rchunks, bucket, w0, l2=lam_l2, config=run_cfg,
                 dtype=self._dtype, optimizer=self._resolve_opt(lam_l1),
                 l1=lam_l1, prefetch_depth=self._prefetch_depth,
-                sparse_grad=self._sparse_grad, device=self._dev)
+                sparse_grad=self._sparse_grad, device=self._dev))
         rbatch = self._restrict_batch(member, cols, lut, bucket)
-        return fit_shard(
+        return self._counted(fit_shard(
             self._robj, rbatch, w0, l2=lam_l2, l1=lam_l1,
             optimizer=self._resolve_opt(lam_l1), config=run_cfg,
-            sparse_grad=self._sparse_grad, mesh=self._mesh, axis=self._axis)
+            sparse_grad=self._sparse_grad, mesh=self._mesh,
+            axis=self._axis))
 
     def _solve_full(self, w_warm, lam_l1, lam_l2,
                     run_cfg) -> OptimizationResult:
         if self._chunks is not None:
-            return fit_streaming(
+            return self._counted(fit_streaming(
                 self._objective, self._chunks, self._dim, w_warm, l2=lam_l2,
                 config=run_cfg, dtype=self._dtype,
                 optimizer=self._resolve_opt(lam_l1), l1=lam_l1,
                 prefetch_depth=self._prefetch_depth,
-                sparse_grad=self._sparse_grad, device=self._dev)
-        return fit_shard(
+                sparse_grad=self._sparse_grad, device=self._dev))
+        return self._counted(fit_shard(
             self._objective, self._batch, w_warm, l2=lam_l2, l1=lam_l1,
             optimizer=self._resolve_opt(lam_l1), config=run_cfg,
             sparse_grad=self._sparse_grad, precomputed_csc=self._csc,
-            mesh=self._mesh, axis=self._axis)
+            mesh=self._mesh, axis=self._axis))
+
+    def _counted(self, res: OptimizationResult) -> OptimizationResult:
+        self.host_reads += int(res.host_syncs)
+        return res
 
     # -- the per-lambda walk --------------------------------------------------
     def solve(self, reg_weight: float, tolerance: Optional[float] = None
@@ -442,9 +464,26 @@ class PathSolver:
                    else dataclasses.replace(self._config,
                                             tolerance=tolerance))
         t0 = time.perf_counter()
-        res, stats = self._solve_one(lam, lam_l1, lam_l2, run_cfg,
-                                     float(tol))
-        stats.solve_seconds = time.perf_counter() - t0
+        launches = kernels.csc_column_sums.launches
+        with obs_trace.span("glm.path_lambda", cat="train", lam=lam,
+                            l1=lam_l1, l2=lam_l2,
+                            rule=self._pc.screen) as sp:
+            res, stats = self._solve_one(lam, lam_l1, lam_l2, run_cfg,
+                                         float(tol))
+            stats.solve_seconds = time.perf_counter() - t0
+            sp.set(candidates=stats.candidate_size,
+                   screened_dim=stats.screened_dim,
+                   frozen=stats.features_frozen,
+                   kkt_rounds=stats.kkt_rounds,
+                   kkt_violations=stats.kkt_violations,
+                   fallback=stats.fallback_full,
+                   iterations=stats.solver_iterations)
+        self.kernel_launches += kernels.csc_column_sums.launches - launches
+        obs_metrics.training_metrics().record_path_lambda(
+            frozen=stats.features_frozen, rounds=stats.kkt_rounds,
+            violations=stats.kkt_violations,
+            full_grad_passes=stats.full_grad_passes,
+            fallback=stats.fallback_full)
         self.total_iterations = self.total_iterations \
             + stats.solver_iterations
         _log.info(
@@ -493,6 +532,7 @@ class PathSolver:
         member = ((torch.abs(g_prev) >= thr) | (w_prev != 0)
                   | ~self._penalized)
         n_sel = int(torch.count_nonzero(member))
+        self.host_reads += 1
         stats.candidate_size = n_sel
 
         w_full = w_prev
@@ -530,6 +570,7 @@ class PathSolver:
             slack = kkt_slack(lam_l1, self._pc.kkt_tol)
             viol = (~member) & (torch.abs(g_cert) > lam_l1 + slack)
             nv = int(torch.count_nonzero(viol))
+            self.host_reads += 1
             if nv == 0:
                 stats.screened_dim = bucket
                 stats.features_frozen = self._dim - n_sel

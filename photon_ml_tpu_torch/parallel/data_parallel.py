@@ -38,6 +38,12 @@ A fit takes one of three paths:
 
 The column-sorted modes use no atomics, so their fits are bit-reproducible
 from run to run; TRON's Jacobi preconditioner goes through the same view.
+
+In place of the JAX module's ``compiled_kernel_count`` (the XLA executables
+cached per objective, which eager torch does not build), each fit's result
+carries what the fit cost the card: ``kernel_launches`` (the
+``ops.kernels.csc_column_sums`` launches it made) beside ``host_syncs``
+(its device-to-host reads).
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ from typing import Callable, Optional
 
 import torch
 
-from photon_ml_tpu_torch.ops.kernels import TILE, csc_transpose_apply_kernel
+from photon_ml_tpu_torch.ops.kernels import (
+    TILE, csc_column_sums, csc_transpose_apply_kernel,
+)
 from photon_ml_tpu_torch.ops.losses import apply_weights, mask_margins
 from photon_ml_tpu_torch.ops.normalization import (
     eff_coeffs, norm_chain_t, norm_fixed_fs,
@@ -581,18 +589,21 @@ def fit_shard(
         raise ValueError(f"w0 lies on {w0.device}, the batch on "
                          f"{batch.device}")
     sparse_grad = resolve_sparse_grad(sparse_grad, batch.features)
+    launches = csc_column_sums.launches
     if optimizer == "lbfgs" and line_search == "margin":
-        return _fit_distributed_margin(
+        res = _fit_distributed_margin(
             objective, batch, w0, l2, config, transpose=sparse_grad,
             precomputed_csc=precomputed_csc, mesh=mesh, axis=axis)
-    if sparse_grad in _CSC_APPLY:
-        return _fit_distributed_csc(
+    elif sparse_grad in _CSC_APPLY:
+        res = _fit_distributed_csc(
             objective, batch, w0, l2, l1, optimizer, config,
             transpose=sparse_grad, precomputed_csc=precomputed_csc,
             mesh=mesh, axis=axis)
-    if precomputed_csc is not None:
+    elif precomputed_csc is not None:
         raise ValueError(
             f"precomputed_csc given but sparse_grad={sparse_grad!r} does "
             "not use it; pass sparse_grad='csc' (or a csc variant)")
-    return _fit_distributed_full(objective, batch, w0, l2, l1, optimizer,
-                                 config, mesh=mesh, axis=axis)
+    else:
+        res = _fit_distributed_full(objective, batch, w0, l2, l1, optimizer,
+                                    config, mesh=mesh, axis=axis)
+    return res._replace(kernel_launches=csc_column_sums.launches - launches)

@@ -48,9 +48,11 @@ one host's RAM. This module makes the table a *partitioned* structure:
   (bit-preserving), lengths first, then the payload in bounded chunks so
   one giant message can never monopolize the interconnect.
 
-The reference's trace spans and exchange metrics (``obs``) and its
-determinism-replay hooks (``analysis.sanitizers.deterministic_replay``)
-are ROADMAP item 20: the pack, gather and unpack below run unwrapped.
+Every exchange records the reference's ``exchange.barrier`` and
+``exchange.allgather`` spans (``cat="collective"``, the ``site`` label
+``obs.trace_cli merge`` aligns ranks on) and the training metrics'
+exchange counters. The reference's determinism-replay hooks
+(``analysis.sanitizers.deterministic_replay``) are ROADMAP item 20b.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ import numpy as np
 
 import torch
 
+from photon_ml_tpu_torch.obs import metrics as obs_metrics
+from photon_ml_tpu_torch.obs import trace as obs_trace
 from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.parallel.resilience import (
     _gather_host,
@@ -337,14 +341,21 @@ def _guarded_gather(blob: bytes, *, tag: str,
     fault_injection.check("entity_shard.exchange")
     tp = current_transport()
     if tp.process_count() > 1:
-        health_barrier(f"entity_shard.exchange:{tag}", timeout=timeout)
-    with collective_site(tag):
-        blobs = allgather_blobs(blob, timeout=timeout)
+        with obs_trace.span("exchange.barrier", cat="collective",
+                            site=f"barrier:{tag}"):
+            health_barrier(f"entity_shard.exchange:{tag}", timeout=timeout)
+    with obs_trace.span("exchange.allgather", cat="collective",
+                        site=tag, bytes_sent=len(blob)):
+        with collective_site(tag):
+            blobs = allgather_blobs(blob, timeout=timeout)
     if stats is not None:
         stats.exchanges += 1
         stats.bytes_sent += len(blob)
         stats.bytes_gathered += sum(len(b) for b in blobs)
         stats.seconds += time.perf_counter() - t0
+        obs_metrics.training_metrics().record_exchange(
+            len(blob), sum(len(b) for b in blobs),
+            time.perf_counter() - t0)
     return blobs
 
 

@@ -53,8 +53,12 @@ Each pass's local work runs inside a ``resilience.CollectiveGuard``
 ``stream.ladder``, as in the reference) that ends before the pass's
 cross-process sum: a process whose pass fails reports it at the guard's
 health barrier, and every process raises ``PeerFailure`` there instead of
-waiting in the sum. One process pays nothing. Not here: the trace spans
-and the training metrics are ROADMAP item 20.
+waiting in the sum. One process pays nothing.
+
+The transfer thread adopts the consumer's trace context
+(``obs.trace.use_context``), so its ``stream.upload`` spans carry the
+fit's trace id, and every fit adds its decode, transfer and stall
+seconds to the training metrics' prefetch counters.
 """
 
 from __future__ import annotations
@@ -71,6 +75,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from photon_ml_tpu_torch.obs import metrics as obs_metrics
+from photon_ml_tpu_torch.obs import trace as obs_trace
 from photon_ml_tpu_torch.ops.losses import apply_weights, mask_margins
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.optimize.common import (
@@ -279,9 +285,11 @@ def iter_device_chunks(chunks, to_device: Callable,
     if torch.cuda.is_available():
         cuda_dev = torch.cuda.current_device()
     fault_proc = current_process_index()
+    tctx = obs_trace.current_context()  # handed off to the ring thread
 
     def produce():
-        with fault_injection.process_context(fault_proc):
+        with fault_injection.process_context(fault_proc), \
+                obs_trace.use_context(tctx):
             produce_chunks()
 
     def produce_chunks():
@@ -298,7 +306,8 @@ def iter_device_chunks(chunks, to_device: Callable,
                 now = time.perf_counter()
                 if stop.is_set():
                     return
-                dev = to_device(chunk)
+                with obs_trace.span("stream.upload", cat="stream"):
+                    dev = to_device(chunk)
                 if stats is not None:
                     stats.decode_s += now - t_wait
                     stats.transfer_s += time.perf_counter() - now
@@ -750,6 +759,10 @@ def _finish_stream_result(res: OptimizationResult, stats: StreamStats,
         "%.3fs, transfer %.3fs, compute-stall %.3fs",
         optimizer, stats.passes, stats.chunks, stats.decode_s,
         stats.transfer_s, stats.stall_s)
+    # one StreamStats per fit, so the totals are this fit's
+    obs_metrics.training_metrics().record_prefetch(
+        stall_s=stats.stall_s, decode_s=stats.decode_s,
+        transfer_s=stats.transfer_s)
     return res._replace(stream_stats=stats.as_dict(),
                         host_syncs=stats.host_reads)
 

@@ -297,14 +297,13 @@ def test_each_package_scores_its_own_model_alike(fixture, runs):
 
 _DEFERRED_CASES = [
     (["--publish-to", "registry"], "19"),
-    (["--profile-dir", "prof"], "20"),
-    (["--trace-dir", "trace"], "20"),
 ]
 
 
 # the ids keep their numbers from before the six streaming flags (item 16),
-# the three multi-process flags (item 15) and the four recovery and
-# sharding flags (item 17) were ported and left this list
+# the three multi-process flags (item 15), the four recovery and sharding
+# flags (item 17) and the two observability flags (item 20a) were ported
+# and left this list
 @pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
     f"flags{i + 13}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
 def test_deferred_flag_raises(tmp_path, flags, item):
@@ -313,14 +312,6 @@ def test_deferred_flag_raises(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item} "):
         game_training_driver.main(argv)
     assert not (tmp_path / "o").exists()
-
-
-@pytest.mark.parametrize("flag", ["--trace-sample"])
-def test_refinements_of_deferred_flags_are_not_accepted(tmp_path, flag):
-    with pytest.raises(SystemExit):
-        game_training_driver.main(
-            ["--train-data", "absent.avro", "--coordinates", "[]",
-             "--output-dir", str(tmp_path / "o"), flag, "2"])
 
 
 def _port_argv(fixture, out, *flags):

@@ -18,8 +18,8 @@ All of them score validation data. Tolerances: relative L2 of 1e-6 on every
 lambda's coefficients and variances (the JAX driver's gradient is a
 scatter-add on the CPU, the port's the column-sorted kernel path's plain
 version: two summation orders, compounded over the iterations); 1e-9 on
-every validation metric and on the Hosmer-Lemeshow statistic. Each deferred
-flag raises; the recovery flags leave a clean run's models byte for byte,
+every validation metric and on the Hosmer-Lemeshow statistic. The
+recovery flags leave a clean run's models byte for byte,
 a killed screened path resumes to the uninterrupted path's models byte
 for byte, and the default ``--device`` raises without CUDA."""
 
@@ -200,25 +200,6 @@ def test_diagnostics_report_matches(runs):
     jscores = {e["feature"]: e["score"] for e in want["feature_importance"]}
     assert scores.keys() == jscores.keys()
     assert _rel([scores[k] for k in jscores], list(jscores.values())) <= TOL_W
-
-
-_DEFERRED_CASES = [
-    (["--profile-dir", "prof"], "20"),
-    (["--trace-dir", "trace"], "20"),
-]
-
-
-# the ids keep their numbers from before the six streaming flags (item 16),
-# the three multi-process flags (item 15) and the three recovery cases
-# (item 17) were ported and left this list
-@pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
-    f"flags{i + 12}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
-def test_deferred_flag_raises(tmp_path, flags, item):
-    argv = ["--train-data", "absent.avro", "--output-dir", str(tmp_path / "o"),
-            "--device", "cpu", *flags]
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item} "):
-        glm_driver.main(argv)
-    assert not (tmp_path / "o").exists()
 
 
 def _svm_argv(fixtures, out, *flags):
