@@ -73,7 +73,7 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     geometric from ``lambda_max()`` down to 1e-2 of it, walked with
     ``screen="strong"`` and with ``screen="off"``, first in float32 with the
     GLM driver's default solver settings (100 iterations, tolerance 1e-7),
-    then in float64 over the grid's first 6 lambdas (OWL-QN, at most 200
+    then in float64 over the grid's first 3 lambdas (OWL-QN, at most 200
     iterations per solve at tolerance 0). Per lambda it prints the candidates, the restricted width, the KKT
     rounds, both solve times and how far the two walks' solutions differ.
     Gates, in both dtypes: every lambda certified; at the coordinates
@@ -244,7 +244,7 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     each run's wall time. (b) Inside phase 13's
     directory, the saved model's per-user coordinate through
     ``ModelDirCoefficientStore`` -> ``EntityCoefficientLRU`` (one pass over
-    the file for the known ids, one for the validation users) into a
+    the file for the validation users, which learns the known ids) into a
     ``PagedCoefficientTable`` of 16 pages of 256 rows on the card (4,096
     resident users, dim 2^16 plus the intercept, 1.07 GB of float32);
     phase 12's validation rows (39 features and the intercept, about 27%
@@ -263,6 +263,38 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     0, two calls bit-identical; its, the plain version's and
     ``embedding_bag``'s times beside the bound.
 
+20. the serving path (``serve/session.py``, ``batcher.py``,
+    ``server.py``, ``cli/serving_driver.py``), inside phase 13's
+    directory: the serving driver as a subprocess (``--device cuda``, the
+    script's own device) on the saved ``best`` model at full width (d =
+    2^16 and the intercept, 100,000 users, 10,000 items), both random
+    coordinates on paged tables (``--re-dense-dim-max 65537 --re-pages 16
+    --re-page-rows 256``), ``--max-batch 64``, ``--coeff-cache-entries
+    65536`` (every validation user and item stays in the LRU: without it
+    each cold batch costs a pass of the Avro file), ``--trace-dir``. It
+    warms the validation users and items with one ``POST
+    /admin/membership`` carrying ``prefetchEntityIds`` (one store pass per
+    coordinate), then sends phase 12's 2^15 validation rows as ``POST
+    /score`` requests of 1-64 rows (sizes from the seed) from 4 client
+    threads. Gates: every request 200 and every score within 1e-5 of the
+    scoring driver's ``score_game_model`` scores of the same rows; the
+    users the model does not know (about 27%) get the fixed-only margin
+    (their ``per_user`` part exactly 0); ``/metrics`` shows one capture
+    per rung of the ladder after warmup and no capture after it; the
+    ``paged_gather_score`` launches equal twice the replays (one per
+    random coordinate per round), and the replays at least the batches;
+    an identical ``/admin/reload`` (``"force": true``) captures nothing,
+    and 32 requests sent one at a time score bit for bit as before it;
+    SIGTERM drains and the driver exits 0, its log ending with
+    ``driver_done``. It prints the seconds to ready, of the prefetch and
+    of the reload, rows/s, p50/p99 request latency, batches, replays and
+    launches, and per rung the copy + replay + read-back time
+    (``session.device_compute`` spans of the driver's trace). Then the
+    kernel's pointer entry (``paged_gather_score_at``, the one the
+    captured graphs launch) against its plain version and the direct
+    entry at the served shape (B = 64, k = 64), and its, the plain
+    version's and ``embedding_bag``'s times.
+
 Each fit's launch count (``csc_column_sums.launches``) is set to 0 just
 before it and read just after (for phases 9, 13 and 15: before and after
 each driver run; for phases 10 and 12: before and after each of the four
@@ -272,8 +304,9 @@ phase 3 its count may move only by the timings that call it by name, and
 each rank of phases 17 and 18 ends with a count of 0.
 
 ``paged_gather_score.launches`` is set to 0 just before each of phase
-19's scoring runs and read just after; its comparisons and timings do not
-count.
+19's scoring runs and read just after; in phase 20 the driver process's
+count is read from its ``/metrics`` just before and just after the
+scoring window. Its comparisons and timings do not count.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object (all three kernels), and
@@ -313,10 +346,11 @@ DRIVER_MIN_AUC = 0.6
 # lambdas from lambda_max down to 1e-2 lambda_max
 PATH_ALPHA, PATH_LAMBDAS, PATH_SPAN = 0.9, 20, 1e-2
 PATH_ITERS = 200  # per float64 solve, tolerance 0 (see phase_path)
-# the float64 walks stop after the grid's first 6 lambdas, down to about
-# 0.30 lambda_max: the last 14 run in float32 as well, and the script's
+# the float64 walks stop after the grid's first 3 lambdas, down to about
+# 0.62 lambda_max (6 until the serving driver's phase 20 needed the time):
+# the last 17 run in float32 as well, and the script's
 # time limit holds phase 18 too
-PATH_F64_LAMBDAS = 6
+PATH_F64_LAMBDAS = 3
 PATH_F32_ITERS, PATH_F32_TOL = 100, 1e-7  # the GLM driver's defaults
 TOL_SCAN_F64 = 1e-12  # the float64 kernel: |err_i| <= this * cumsum|x|
 # csc_column_sums: |err_j| <= TOL_COLUMN * sum_j |x| (+ one float32 ulp of
@@ -1782,8 +1816,9 @@ def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
     """Phase 13: the GAME command-line path at phase 12's shape, written
     as Avro: the feature indexing driver, the training driver (3 sweeps, 2
     Bayesian tuning rounds of the fixed coordinate's reg weight) and the
-    scoring driver on the saved ``best`` model; then ``then(best)`` (phase
-    19 (b)) on the saved model before it is removed. Returns (the kernel's
+    scoring driver on the saved ``best`` model; then ``then(best,
+    scores)`` (phases 19 (b) and 20) on the saved model and the scoring
+    driver's scores of the validation rows, before they are removed. Returns (the kernel's
     launches in the training driver's run, what ``then`` returned)."""
     import os
     import tempfile
@@ -1946,7 +1981,8 @@ def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
         scores = np.array([r["predictionScore"] for r in iter_avro_records(
             os.path.join(sout, "scores.avro"))])
         auc = next(e for e in slog if e["event"] == "evaluation")["auc"]
-        after = None if then is None else then(os.path.join(out, "best"))
+        after = (None if then is None
+                 else then(os.path.join(out, "best"), scores))
     print(f"game_scoring_driver: {t_score:.3f} s on {smi}; "
           + ", ".join(f"stage {k} {v:.4f} s" for k, v in stages(slog).items()))
     diff = float(np.abs(scores - want[-1]).max()) if scores.shape == \
@@ -3555,7 +3591,7 @@ def phase_paged(best, dev, smi, peaks):
     """Phase 19 (b) and (c), inside phase 13's directory: the per-user
     random coordinate of the saved ``best`` model through
     ``ModelDirCoefficientStore`` -> ``EntityCoefficientLRU`` (one pass for
-    the known ids, one for the validation users) -> a
+    the validation users, which learns the store's ids) -> a
     ``PagedCoefficientTable`` of 16 pages of 256 rows on the card; phase
     12's validation rows (phase 13's validation files) scored in batches of
     32 and of 4,096. Gates: the scores within 1e-5 of
@@ -3591,22 +3627,19 @@ def phase_paged(best, dev, smi, peaks):
     n, k = idx_np.shape
     store = ModelDirCoefficientStore(best, "per_user", imap)
     wanted = sorted(set(ids))
-    t0 = time.perf_counter()
-    known = store.known_ids()
-    t_known = time.perf_counter() - t0
     lru = EntityCoefficientLRU(store.load, len(wanted),
                                metrics=ServingMetrics(),
                                batch_loader=store.load_many)
     t0 = time.perf_counter()
     entries = lru.warm_entries(wanted)
     t_load = time.perf_counter() - t0
+    known = store.known_ids()  # learnt in that pass
     unknown = np.array([e not in known for e in ids])
-    print(f"phase 19 (b): per_user of {best}: {len(known)} entities in the "
-          f"store (ids pass {t_known:.2f} s), {len(wanted)} validation "
-          f"users faulted into the LRU in one load_many pass "
-          f"({t_load:.2f} s); {n} rows of {k} features (39 and the "
-          f"intercept) over dim {imap.size}; {unknown.mean():.4f} of the "
-          f"rows' users unknown to the model")
+    print(f"phase 19 (b): per_user of {best}: {len(wanted)} validation "
+          f"users faulted into the LRU in one load_many pass, which also "
+          f"learnt the store's {len(known)} ids ({t_load:.2f} s); {n} rows "
+          f"of {k} features (39 and the intercept) over dim {imap.size}; "
+          f"{unknown.mean():.4f} of the rows' users unknown to the model")
 
     # the reference: the same coefficients as a RandomEffectModel, scored
     # by game/scoring -> game/random_effect.score_random_effect
@@ -3824,6 +3857,377 @@ def time_paged(table, slots, idx, val, peaks, smi):
     return t
 
 
+
+# -- phase 20: the serving driver ------------------------------------------
+SERVE_DRIVER = [sys.executable, "-m", "photon_ml_tpu_torch.cli.serving_driver"]
+SERVE_MAX_BATCH, SERVE_CLIENTS = 64, 4
+SERVE_PAGES, SERVE_PAGE_ROWS = 16, 256  # per random coordinate, as phase 19
+SERVE_LRU = 1 << 16  # LRU entries: every validation user and item stays
+SERVE_PROBES = 32  # requests sent one at a time before and after the reload
+SERVE_WAIT_S = 300  # start-up, the prefetch and the reload, each at most
+TOL_SERVE = 1e-5  # |served - score_game_model| per row
+
+
+def _metrics(base):
+    """``GET /metrics`` as a dict of series -> value."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def _post(base, path, body, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"{base}{path}", data=body if isinstance(body, bytes)
+        else json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        status, data = resp.status, resp.read()
+    return status, json.loads(data), time.perf_counter() - t0
+
+
+def serve_requests(idx_np, users, items, seed):
+    """Phase 12's validation rows as ``POST /score`` bodies of 1 to
+    SERVE_MAX_BATCH rows (sizes drawn from ``seed``), each row's features
+    by name (``f{j}``, value 1) with its user and item, per-coordinate
+    scores asked for. Returns [(first row, rows, body bytes)]."""
+    rng = np.random.default_rng(seed)
+    out, lo, n = [], 0, idx_np.shape[0]
+    while lo < n:
+        size = min(int(rng.integers(1, SERVE_MAX_BATCH + 1)), n - lo)
+        rows = [{"features": [{"name": f"f{j}", "value": 1.0}
+                              for j in idx_np[i].tolist()],
+                 "entityIds": {"user": str(users[i]), "item": str(items[i])}}
+                for i in range(lo, lo + size)]
+        out.append((lo, size, json.dumps(
+            {"rows": rows, "perCoordinate": True}).encode()))
+        lo += size
+    return out
+
+
+def phase_serve(best, ref, dev, smi, peaks):
+    """Phase 20, inside phase 13's directory: the serving driver as a
+    subprocess on the saved ``best`` model (d = 2^16 and the intercept,
+    100,000 users, 10,000 items), both random coordinates on paged tables
+    of SERVE_PAGES x SERVE_PAGE_ROWS, ``--max-batch`` 64, traced. One
+    ``POST /admin/membership`` with ``prefetchEntityIds`` warms the
+    validation users and items (one store pass per coordinate); phase
+    12's 2^15 validation rows then go as ``POST /score`` requests of 1-64
+    rows from SERVE_CLIENTS client threads. Gates: every request 200 and
+    every score within TOL_SERVE of ``score_game_model`` (``ref``, the
+    scoring driver's scores of the same rows); users the model does not
+    know get the fixed-only margin (their per_user part exactly 0);
+    ``/metrics`` shows one capture per rung after warmup and none after;
+    no batch or row leaves the fused rungs (the session's eager, fallback
+    and host-math overflow counters stay 0), so every batch is served by
+    one or more replays, each launching the kernel once per random
+    coordinate; an identical ``/admin/reload`` captures nothing and
+    SERVE_PROBES requests sent one at a time score bit for bit as before
+    it; SIGTERM drains and the driver exits 0. Then the pointer entry
+    ``paged_gather_score_at`` against its plain version at the served
+    shape (B = 64, k = 64), and the host math a row would get if it left
+    the rungs, bit for bit against the kernel (the reason a batch whose
+    install evicts its own entities is replayed again). Returns the
+    phase's numbers."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    from photon_ml_tpu_torch.ops.kernels import (
+        paged_gather_score, paged_gather_score_at, paged_gather_score_plain,
+    )
+    from photon_ml_tpu_torch.serve.session import bucket_ladder, bucketize
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(best)
+    idx_raw, users, items, _ = game_arrays(GAME_ROWS + GAME_VAL_ROWS, SEED)
+    known = set(users[:GAME_ROWS].tolist())
+    idx_np, users, items = (idx_raw[GAME_ROWS:], users[GAME_ROWS:],
+                            items[GAME_ROWS:])
+    n = idx_np.shape[0]
+    unknown = np.array([u not in known for u in users.tolist()])
+    ladder = bucket_ladder(SERVE_MAX_BATCH)
+    log_dir, trace_dir = (os.path.join(root, "serve_log"),
+                          os.path.join(root, "serve_trace"))
+    cmd = SERVE_DRIVER + [
+        "--model-dir", best, "--port", "0", "--device", str(dev),
+        "--max-batch", str(SERVE_MAX_BATCH),
+        "--re-dense-dim-max", str(GAME_DIM + 1),
+        "--re-pages", str(SERVE_PAGES), "--re-page-rows",
+        str(SERVE_PAGE_ROWS), "--coeff-cache-entries", str(SERVE_LRU),
+        "--log-dir", log_dir, "--trace-dir", trace_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines: "queue.Queue[str]" = queue.Queue()
+    output = []
+
+    def pump():
+        for line in proc.stdout:
+            output.append(line)
+            lines.put(line)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        port, deadline = None, time.monotonic() + SERVE_WAIT_S
+        while port is None:
+            if proc.poll() is not None and lines.empty():
+                raise RuntimeError(f"the serving driver exited "
+                                   f"{proc.returncode}:\n{''.join(output)}")
+            try:
+                line = lines.get(timeout=max(0.1, deadline -
+                                             time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError("the serving driver did not get ready "
+                                   f"in {SERVE_WAIT_S} s") from None
+            m = re.search(r"^serving .* on http://[\d.]+:(\d+) ", line)
+            port = int(m.group(1)) if m else None
+        t_ready = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        bodies = serve_requests(idx_np, users, items, SEED)
+        warm = _metrics(base)
+        miss, hit = ("photon_serve_compile_cache_misses_total",
+                     "photon_serve_compile_cache_hits_total")
+        launches_key = ('photon_serve_kernel_launches_total'
+                        '{kernel="paged_gather_score"}')
+        # batches and rows that left the fused rungs: all must stay 0
+        off_rungs = ("photon_serve_fixed_eager_batches_total",
+                     "photon_serve_fused_fallback_batches_total",
+                     "photon_serve_overflow_rows_total")
+        print(f"phase 20: serving_driver ready in {t_ready:.2f} s "
+              f"(model load and {int(warm[miss])} captures, one per rung of "
+              f"{ladder}); {len(bodies)} requests of 1-{SERVE_MAX_BATCH} "
+              f"rows built; on {smi}")
+        if warm[miss] != len(ladder):
+            raise RuntimeError(f"{warm[miss]} captures after warmup, not "
+                               f"{len(ladder)}")
+        ids = sorted(set(users.astype(str).tolist())
+                     | set(items.astype(str).tolist()))
+        status, body, t_pref = _post(base, "/admin/membership", {
+            "epoch": 1, "numShards": 1, "shardIndex": 0,
+            "prefetchEntityIds": ids}, timeout=SERVE_WAIT_S)
+        print(f"  /admin/membership prefetch of {len(ids)} ids (validation "
+              f"users and items): {t_pref:.2f} s, {body.get('prefetched')} "
+              f"entities, {body.get('prefetchBytes', 0) / 1e6:.1f} MB")
+        if status != 200 or not body["applied"] or not body.get("prefetched"):
+            raise RuntimeError(f"membership prefetch: {status} {body}")
+
+        # the scoring window: SERVE_CLIENTS threads over the requests
+        work: "queue.Queue" = queue.Queue()
+        for item in bodies:
+            work.put(item)
+        got = np.full(n, np.nan)
+        user_part = np.full(n, np.nan)
+        latencies, errors = [], []
+
+        def client():
+            while True:
+                try:
+                    lo, size, data = work.get_nowait()
+                except queue.Empty:
+                    return
+                try:
+                    status, out, sec = _post(base, "/score", data)
+                except Exception as e:  # reported below, fails the phase
+                    errors.append(repr(e))
+                    continue
+                if status != 200 or len(out["scores"]) != size:
+                    errors.append(f"{status} {str(out)[:200]}")
+                    continue
+                got[lo:lo + size] = out["scores"]
+                user_part[lo:lo + size] = out["scoreComponents"]["per_user"]
+                latencies.append(sec)
+
+        before = _metrics(base)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_WAIT_S)
+        seconds = time.perf_counter() - t0
+        after = _metrics(base)
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"{len(errors)} requests failed: {errors[:3]}")
+        diff = float(np.abs(got - ref).max())
+        zeros = bool((user_part[unknown] == 0).all())
+        replays = after[hit] - before[hit]
+        batches = (after["photon_serve_batches_total"]
+                   - before["photon_serve_batches_total"])
+        launches = after[launches_key] - before[launches_key]
+        lat = np.array(latencies) * 1e3
+        rows_s = n / seconds
+        print(f"  {n} rows in {len(bodies)} requests from {SERVE_CLIENTS} "
+              f"clients: {seconds:.3f} s, {rows_s:.1f} rows/s; request "
+              f"latency p50 {np.percentile(lat, 50):.3f} ms, p99 "
+              f"{np.percentile(lat, 99):.3f} ms; {int(batches)} batches, "
+              f"{int(replays)} replays ({int(replays - batches)} of them "
+              f"rounds after a batch's first), {int(launches)} "
+              f"paged_gather_score launches "
+              f"({launches / max(batches, 1):.3f} per batch); "
+              + ", ".join(f"{k[len('photon_serve_'):]} {int(after[k])}"
+                          for k in off_rungs) + "; max "
+              f"|served - score_game_model| {diff:.3e} (tol {TOL_SERVE}); "
+              f"{unknown.mean():.4f} of the rows' users unknown, their "
+              f"per_user part 0: {zeros}; on {smi}")
+        if not (np.isfinite(got).all() and diff <= TOL_SERVE and zeros):
+            raise RuntimeError(f"served scores: max diff {diff}, unknown "
+                               f"users' part 0: {zeros}")
+        if after[miss] != len(ladder):
+            raise RuntimeError(f"{after[miss] - len(ladder)} captures after "
+                               "warmup")
+        # with nothing off the rungs, every hit is a fused replay and
+        # every row a replay's output; a replay's launches are those its
+        # capture recorded (the card tests hold them to the profiler's)
+        if any(after[k] for k in off_rungs) or not (
+                launches == 2 * replays and replays >= batches > 0):
+            raise RuntimeError(
+                f"{launches} launches for {replays} replays of {batches} "
+                f"batches; off the rungs: {[after[k] for k in off_rungs]}")
+
+        # an identical reload: nothing captured, probes bit-equal
+        probes = bodies[:SERVE_PROBES]
+
+        def probe():
+            return [_post(base, "/score", data)[1]["scores"]
+                    for _, _, data in probes]
+
+        first = probe()
+        status, body, t_reload = _post(base, "/admin/reload", {
+            "modelDir": best, "force": True}, timeout=SERVE_WAIT_S)
+        if status != 200 or not body["swapped"]:
+            raise RuntimeError(f"reload: {status} {body}")
+        again = probe()
+        final = _metrics(base)
+        print(f"  identical /admin/reload: {t_reload:.2f} s; {SERVE_PROBES} "
+              f"requests one at a time before and after it equal bit for "
+              f"bit: {again == first}; captures "
+              f"{int(final[miss])}, swaps {int(final['photon_serve_swaps_total'])}")
+        if (again != first or final[miss] != len(ladder)
+                or any(final[k] for k in off_rungs)):
+            raise RuntimeError("the identical reload changed a score, "
+                               "captured a rung or left the rungs")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_WAIT_S)
+        if rc != 0:
+            raise RuntimeError(f"the serving driver exited {rc} after "
+                               f"SIGTERM:\n{''.join(output[-20:])}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(60)
+    with open(os.path.join(log_dir, "photon.log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    done = log[-1]
+    if done["event"] != "driver_done" or "draining" not in \
+            [e["event"] for e in log]:
+        raise RuntimeError(f"the driver's log ends with {done['event']}")
+
+    # per-batch time at the rungs served: the session's copy, replay and
+    # read-back (``session.device_compute``) and the whole batch
+    # (``batch.execute``), from the driver's trace
+    per_rung, per_batch = {}, {}
+    for e in _spans(trace_dir):
+        if e["name"] == "session.device_compute":
+            per_rung.setdefault(e["args"]["bucket"], []).append(e["dur"])
+        elif e["name"] == "batch.execute":
+            per_batch.setdefault(bucketize(e["args"]["rows"], ladder),
+                                 []).append(e["dur"])
+    rungs = {b: {"replays": len(v), "p50_ms": float(np.median(v)) / 1e3,
+                 "p99_ms": float(np.percentile(v, 99)) / 1e3,
+                 "batches": len(per_batch.get(b, ())),
+                 "batch_p50_ms": float(np.median(per_batch[b])) / 1e3
+                 if b in per_batch else None}
+             for b, v in sorted(per_rung.items())}
+    for b, r in rungs.items():
+        print(f"  rung B={b}: {r['replays']} replays, copy + replay + "
+              f"read-back p50 {r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} "
+              f"ms; {r['batches']} whole batches (resolve, faults, "
+              f"installs, replays) p50 {_ms(r['batch_p50_ms'])}")
+
+    # the pointer entry against its plain version at the served shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.randn(SERVE_PAGES * SERVE_PAGE_ROWS, GAME_DIM + 1,
+                        generator=gen, device=dev)
+    b, k = SERVE_MAX_BATCH, SERVE_MAX_BATCH
+    slots = torch.randint(-1, table.shape[0], (b,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    idx = torch.randint(0, table.shape[1], (b, k), generator=gen,
+                        device=dev, dtype=torch.int32)
+    val = torch.randn(b, k, generator=gen, device=dev)
+    table_at = torch.tensor([table.data_ptr()], dtype=torch.int64,
+                            device=dev)
+    count = paged_gather_score.launches
+    at = paged_gather_score_at(table_at, table, slots, idx, val)
+    want = paged_gather_score_plain(table, slots, idx, val)
+    terms = paged_gather_score_plain(table.abs(), slots, idx, val.abs())
+    gate = PAGED_EPS_GATE * torch.finfo(table.dtype).eps * terms
+    err = float((at - want).abs().max())
+    if not (bool(((at - want).abs() <= gate).all())
+            and torch.equal(at, paged_gather_score(table, slots, idx, val))):
+        raise RuntimeError(f"paged_gather_score_at differs: {err:.3e}")
+    reps = 50
+    at_ms = cuda_ms(lambda: paged_gather_score_at(table_at, table, slots,
+                                                  idx, val), reps)
+    plain_ms = cuda_ms(lambda: paged_gather_score_plain(table, slots, idx,
+                                                        val), reps)
+    flat = (slots.clamp(min=0).to(torch.int64)[:, None] * table.shape[1]
+            + idx.to(torch.int64))
+    library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        flat, table.view(-1, 1), per_sample_weights=val, mode="sum"), reps)
+    paged_gather_score.launches = count  # by name: a comparison
+    # the session's host math for a row (its entity's table row gathered
+    # at the row's indices, then one numpy dot) against the kernel's bits
+    t_np, s_np, i_np, v_np, at_np = (x.cpu().numpy() for x in
+                                     (table, slots, idx, val, at))
+    live = np.flatnonzero(s_np >= 0)
+    host = np.array([np.dot(t_np[s_np[i], i_np[i]], v_np[i]) for i in live],
+                    np.float32)
+    host_bits_differ = int((host != at_np[live]).sum())
+    resident = int((slots >= 0).sum())
+    nbytes = 4 * b + 8 * b * k + 4 * resident * k + 4 * b + 8
+    bytes_ms = nbytes / peaks[0] * 1e3
+    ops_ms = 2 * resident * k / peaks[1] * 1e3
+    print(f"  paged_gather_score_at B={b} k={k} float32: max |kernel - "
+          f"plain| {err:.3e}, bit-equal to the direct entry; kernel "
+          f"{at_ms:.4f} ms per call, plain {plain_ms:.4f} ms, embedding_bag "
+          f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms; host "
+          f"math differs from the kernel in {host_bits_differ} of "
+          f"{live.size} resident rows' bits; phase "
+          f"20 {time.perf_counter() - t_phase:.1f} s; on {smi}")
+    return {"launches": int(launches), "replays": int(replays),
+            "batches": int(batches), "rows_per_s": rows_s,
+            "seconds": seconds, "ready_s": t_ready, "prefetch_s": t_pref,
+            "reload_s": t_reload,
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "captures": int(final[miss]), "rungs": rungs,
+            "max_abs_diff": diff,
+            "extra_rounds": int(replays - batches),
+            "host_bits_differ": [host_bits_differ, int(live.size)],
+            "at_b64_k64": {"kernel_ms": at_ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "max_abs_err": err,
+                           "bound_ms": max(bytes_ms, ops_ms),
+                           "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                        else "operations")},
+            "driver_done_launches": done["kernel_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3969,8 +4373,14 @@ def main() -> int:
                   stream_timing["max_abs_err"])
     phase_re_solve(dev, gen, smi)
     launches_by_path["game_cd"], game_ctx = phase_game(dev, smi)
-    launches_by_path["game_driver"], paged_kernel = phase_game_driver(
-        dev, smi, then=lambda best: phase_paged(best, dev, smi, peaks))
+    launches_by_path["game_driver"], (paged_kernel, serve) = \
+        phase_game_driver(dev, smi, then=lambda best, scores: (
+            phase_paged(best, dev, smi, peaks),
+            phase_serve(best, scores, dev, smi, peaks)))
+    paged_kernel["launches_by_path"]["serving_driver"] = serve["launches"]
+    paged_kernel["launches"] += serve["launches"]
+    paged_kernel["shapes"]["at_float32_b64_k64"] = serve.pop("at_b64_k64")
+    paged_kernel["serving_driver"] = serve
     launches_by_path["game_cd_streaming"] = phase_game_stream(game_ctx, dev,
                                                               smi)
     # phase 17: multi-process

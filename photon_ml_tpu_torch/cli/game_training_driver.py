@@ -79,9 +79,9 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli._common import (
-    add_trace_args, json_arg, load_input_columns, log_path, positive_int,
-    runtime_info, start_processes, stop_processes, tol_schedule, traced,
-    write_feature_summary,
+    add_trace_args, check_deferred, json_arg, load_input_columns, log_path,
+    positive_int, runtime_info, start_processes, stop_processes,
+    tol_schedule, traced, write_feature_summary,
 )
 from photon_ml_tpu_torch.estimators import GameEstimator
 from photon_ml_tpu_torch.evaluation.evaluators import TASK_DEFAULT_EVALUATOR
@@ -269,14 +269,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_deferred(args, parser: argparse.ArgumentParser) -> None:
-    for dest, item in _DEFERRED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to the PyTorch driver "
-                             f"yet: ROADMAP Queue 1 item {item}")
-
-
 def _load_coordinate_grid(spec: str) -> List[List[CoordinateConfig]]:
     raw = json_arg(spec)
     if not isinstance(raw, list) or not raw:
@@ -383,7 +375,7 @@ def _out_of_core_sources(args, index_maps, ooc_shards, chunk_rows, columns,
 def main(argv: Sequence[str] | None = None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
-    _check_deferred(args, parser)
+    check_deferred(args, parser, _DEFERRED)
     with traced(args):
         return _run(args)
 

@@ -41,6 +41,16 @@
 //   entity reads nothing of the table.
 // - No atomics, no shared memory, nothing allocated: the wrapper allocates
 //   the B outputs.
+//
+// A second entry point, photon_paged_gather_score_at_*, reads the table's
+// address from device memory when it runs instead of taking it as an
+// argument. The scoring session captures each batch rung into a CUDA graph
+// once; a graph bakes its kernels' arguments in, while the paged table gives
+// its buffer a new address on every copy-on-write install. The session
+// writes the address of the snapshot it scores into that slot, in stream
+// order, before each replay, so a replay scores the snapshot of its own
+// batch and no install forces a new capture. The address is loaded only by
+// rows with a resident entity; the arithmetic is the first entry's.
 
 #include <cuda_runtime.h>
 
@@ -65,13 +75,15 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
+// One warp scores row ``row`` of the batch; ``table_at`` is where the
+// table's address is read from (the first entry passes its own argument).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_gather_score_kernel(const T* __restrict__ table,
-                              const int* __restrict__ slots,
-                              const int* __restrict__ idx,
-                              const T* __restrict__ val, T* __restrict__ out,
-                              long long b, int k, long long dim) {
+__device__ __forceinline__ void score_row(const T* const* table_at,
+                                          const int* __restrict__ slots,
+                                          const int* __restrict__ idx,
+                                          const T* __restrict__ val,
+                                          T* __restrict__ out, long long b,
+                                          int k, long long dim) {
   const int lane = threadIdx.x & 31;
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
@@ -81,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) out[row] = T(0);
     return;
   }
-  const T* trow = table + static_cast<long long>(slot) * dim;
+  const T* trow = *table_at + static_cast<long long>(slot) * dim;
   const int* irow = idx + row * k;
   const T* vrow = val + row * k;
   T acc = T(0);
@@ -96,6 +108,28 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    paged_gather_score_kernel(const T* __restrict__ table,
+                              const int* __restrict__ slots,
+                              const int* __restrict__ idx,
+                              const T* __restrict__ val, T* __restrict__ out,
+                              long long b, int k, long long dim) {
+  const T* base = table;
+  score_row<T>(&base, slots, idx, val, out, b, k, dim);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    paged_gather_score_at_kernel(const T* const* __restrict__ table_at,
+                                 const int* __restrict__ slots,
+                                 const int* __restrict__ idx,
+                                 const T* __restrict__ val,
+                                 T* __restrict__ out, long long b, int k,
+                                 long long dim) {
+  score_row<T>(table_at, slots, idx, val, out, b, k, dim);
+}
+
+template <typename T>
 int launch(const void* table, const void* slots, const void* idx,
            const void* val, void* out, long long b, long long k,
            long long dim, void* stream) {
@@ -106,6 +140,21 @@ int launch(const void* table, const void* slots, const void* idx,
           static_cast<const T*>(table), static_cast<const int*>(slots),
           static_cast<const int*>(idx), static_cast<const T*>(val),
           static_cast<T*>(out), b, static_cast<int>(k), dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_at(const void* table_at, const void* slots, const void* idx,
+              const void* val, void* out, long long b, long long k,
+              long long dim, void* stream) {
+  if (b == 0) return 0;
+  const dim3 grid(static_cast<unsigned>((b + kWarps - 1) / kWarps));
+  paged_gather_score_at_kernel<T>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T* const*>(table_at),
+          static_cast<const int*>(slots), static_cast<const int*>(idx),
+          static_cast<const T*>(val), static_cast<T*>(out), b,
+          static_cast<int>(k), dim);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -133,4 +182,26 @@ extern "C" int photon_paged_gather_score_f64(const void* table,
                                              long long k, long long dim,
                                              void* stream) {
   return launch<double>(table, slots, idx, val, out, b, k, dim, stream);
+}
+
+// The same, with the table's address read when the kernel runs from the
+// 8 bytes at ``table_at`` (device memory), which must then name a table of
+// ``dim`` columns of the entry's type that lives until the kernel is done.
+extern "C" int photon_paged_gather_score_at_f32(const void* table_at,
+                                                const void* slots,
+                                                const void* idx,
+                                                const void* val, void* out,
+                                                long long b, long long k,
+                                                long long dim, void* stream) {
+  return launch_at<float>(table_at, slots, idx, val, out, b, k, dim, stream);
+}
+
+extern "C" int photon_paged_gather_score_at_f64(const void* table_at,
+                                                const void* slots,
+                                                const void* idx,
+                                                const void* val, void* out,
+                                                long long b, long long k,
+                                                long long dim, void* stream) {
+  return launch_at<double>(table_at, slots, idx, val, out, b, k, dim,
+                           stream);
 }

@@ -96,7 +96,9 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 8 + [i64, i64, i64, ptr]
         fn.restype = ctypes.c_int
     for name in ("photon_paged_gather_score_f32",
-                 "photon_paged_gather_score_f64"):
+                 "photon_paged_gather_score_f64",
+                 "photon_paged_gather_score_at_f32",
+                 "photon_paged_gather_score_at_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 5 + [i64, i64, i64, ptr]
         fn.restype = ctypes.c_int

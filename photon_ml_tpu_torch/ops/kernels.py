@@ -18,7 +18,11 @@ hold it against the JAX package's kernel.
 ``paged_gather_score`` is the serving tier's per-row random-effect score
 against a device-resident paged entity table (``serve/paged_table.py``),
 the counterpart of the JAX module's plain-``jnp`` ``paged_gather_score``
-(``csrc/paged_gather_score.cu``).
+(``csrc/paged_gather_score.cu``). ``paged_gather_score_at`` launches the
+same kernel through its second entry, which reads the table's address
+from the card when it runs: the scoring session's CUDA graphs launch it,
+so a graph captured once scores whichever snapshot of the table its
+batch holds.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it takes its plain PyTorch version below, which the tests and
@@ -344,3 +348,50 @@ def paged_gather_score(table: torch.Tensor, slots: torch.Tensor,
 
 
 paged_gather_score.launches = 0
+
+
+def _launch_paged_at(table_at, table, slots, indices, values):
+    from photon_ml_tpu_torch.ops.kernel_build import load_library
+
+    lib = load_library()
+    b, k = indices.shape
+    out = torch.empty(b, dtype=table.dtype, device=table.device)
+    if b == 0:
+        return out  # nothing to launch
+    fn = (lib.photon_paged_gather_score_at_f32
+          if table.dtype == torch.float32
+          else lib.photon_paged_gather_score_at_f64)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table_at.data_ptr(), slots.data_ptr(), indices.data_ptr(),
+                 values.data_ptr(), out.data_ptr(), b, k, table.shape[1],
+                 stream)
+    if err != 0:
+        raise launch_error(lib, err, "paged_gather_score kernel launch")
+    paged_gather_score.launches += 1
+    return out
+
+
+def paged_gather_score_at(table_at: torch.Tensor, table: torch.Tensor,
+                          slots: torch.Tensor, indices: torch.Tensor,
+                          values: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_gather_score` for a CUDA graph: the kernel reads the
+    table's address from ``table_at`` (one int64 on the card) when it runs,
+    not when it is launched, so a graph captured once scores whichever
+    table the caller's stream-ordered write left there. ``table`` is a
+    table of the shape, dtype and device that address will name (the
+    checks read it; the kernel does not); the caller keeps the named table
+    alive until the kernel has run. CUDA tensors go to the kernel's second
+    entry (one launch, counted in ``paged_gather_score.launches``), CPU
+    tensors to the plain version on ``table`` itself."""
+    _check_paged(table, slots, indices, values)
+    if (table_at.numel() != 1 or table_at.dtype != torch.int64
+            or table_at.device != table.device):
+        raise ValueError("table_at must be one int64 on the table's device, "
+                         f"got {tuple(table_at.shape)} {table_at.dtype} on "
+                         f"{table_at.device}")
+    if table.device.type == "cuda":
+        return _launch_paged_at(table_at, table, slots, indices, values)
+    if table.device.type == "cpu":
+        return paged_gather_score_plain(table, slots, indices, values)
+    raise ValueError(f"unsupported device {table.device}")

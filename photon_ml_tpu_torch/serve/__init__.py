@@ -1,6 +1,24 @@
-"""The device tier of online GAME scoring (counterpart of
-``photon_ml_tpu/serve``, in part).
+"""Online GAME scoring (counterpart of ``photon_ml_tpu/serve``, in part).
 
+The batch path (``cli/game_scoring_driver.py``) loads a model, scores a
+dataset and exits; this package keeps a model RESIDENT on the card and
+answers scoring requests while it stays loaded:
+
+* :class:`~photon_ml_tpu_torch.serve.session.ScoringSession` — the fixed
+  effects resident on the card, one CUDA graph captured per rung of a
+  bounded ladder of padded batch shapes (steady-state traffic never
+  captures), random effects through the paged table or the LRU, hot swap
+  and rollback;
+* :class:`~photon_ml_tpu_torch.serve.batcher.MicroBatcher` — deadline-based
+  micro-batching (``max_batch`` / ``max_delay_ms``) with a bounded
+  admission queue, explicit load shedding and a stuck-batch watchdog;
+* :class:`~photon_ml_tpu_torch.serve.brownout.BrownoutController` — raises
+  the default degradation level under sustained queue-wait overload;
+* :class:`~photon_ml_tpu_torch.serve.server.ScoringService` /
+  :class:`~photon_ml_tpu_torch.serve.server.ScoringServer` — the
+  stdlib-only JSON endpoint (``/score``, ``/admin/reload``,
+  ``/admin/membership``, ``/healthz``, ``/metrics``) on a threaded HTTP
+  server;
 * :class:`~photon_ml_tpu_torch.serve.paged_table.PagedCoefficientTable` —
   the hot entities' random-effect coefficients resident on the card in
   pages, scored by the hand-written kernel
@@ -16,10 +34,17 @@
 * :class:`~photon_ml_tpu_torch.serve.metrics.ServingMetrics` and
   :class:`~photon_ml_tpu_torch.serve.metrics.Histogram`.
 
-The scoring session, the micro-batcher, the servers, the brownout ladder
-and the registry watcher are ROADMAP items 18b and 19.
+The asyncio server, the front door and its replicas, the model registry
+and its watcher are ROADMAP Queue 1 item 19.
 """
 
+from photon_ml_tpu_torch.serve.batcher import (
+    BatchWatchdogTimeout,
+    MicroBatcher,
+    QueueFullError,
+    ScoreContext,
+)
+from photon_ml_tpu_torch.serve.brownout import BrownoutController
 from photon_ml_tpu_torch.serve.coeff_cache import (
     CoeffEntry,
     EntityCoefficientLRU,
@@ -33,10 +58,14 @@ from photon_ml_tpu_torch.serve.membership import (
 )
 from photon_ml_tpu_torch.serve.metrics import Histogram, ServingMetrics
 from photon_ml_tpu_torch.serve.paged_table import PagedCoefficientTable
+from photon_ml_tpu_torch.serve.server import ScoringServer, ScoringService
+from photon_ml_tpu_torch.serve.session import ScoringSession
 
 __all__ = [
-    "CoeffEntry", "EntityCoefficientLRU", "LayeredCoefficientStore",
+    "ScoringSession", "MicroBatcher", "QueueFullError", "ScoreContext",
+    "BrownoutController", "BatchWatchdogTimeout", "CoeffEntry",
+    "EntityCoefficientLRU", "LayeredCoefficientStore",
     "ModelDirCoefficientStore", "Histogram", "ServingMetrics",
-    "PagedCoefficientTable", "MembershipEpoch", "MembershipManager",
-    "MembershipView",
+    "PagedCoefficientTable", "ScoringService", "ScoringServer",
+    "MembershipEpoch", "MembershipManager", "MembershipView",
 ]

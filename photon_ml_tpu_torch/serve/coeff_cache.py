@@ -129,27 +129,40 @@ class ModelDirCoefficientStore:
         coordinate's file — a cold fault of m entities costs O(file), not
         O(m * file) as m single-entity :meth:`load` calls would (the
         paged table's install path and the LRU's batched misses come
-        through here). Absent ids resolve to None without a file read."""
+        through here). Absent ids resolve to None without a file read
+        once the known ids are built; the first call builds them in the
+        same pass that parses its records (one pass over the file, where
+        the JAX store makes an ids pass first and then a second)."""
         fault_injection.check("store.load")
-        known = self.known_ids()
+        from photon_ml_tpu_torch.io.avro import iter_avro_records
+
+        with self._lock:
+            known = self._known
+        # the first call reads the whole file and records every id in it
+        ids = set() if known is None else None
         out: Dict[str, Optional[CoeffEntry]] = {}
         wanted = set()
         for eid in entity_ids:
             key = str(eid)
-            if key in known:
+            if known is None or key in known:
                 wanted.add(key)
             else:
                 out[key] = None
-        if wanted:
-            from photon_ml_tpu_torch.io.avro import iter_avro_records
-
+        if wanted or ids is not None:
             for rec in iter_avro_records([self._path()]):
                 key = str(rec["modelId"])
+                if ids is not None:
+                    ids.add(key)
                 if key in wanted:
                     out[key] = self._parse(rec)
                     wanted.discard(key)
-                    if not wanted:
+                    if not wanted and ids is None:
                         break
+        if ids is not None:
+            with self._lock:
+                if self._known is None:
+                    self._known = frozenset(ids)
+            out.update((key, None) for key in wanted)
         return out
 
 

@@ -691,3 +691,231 @@ def test_world1_nccl_fit_equals_no_mesh(cuda):
             assert one.host_syncs == meshed.host_syncs
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_paged_gather_score_at_reads_the_address_when_it_runs(cuda, dtype):
+    """The pointer entry scores bit for bit as the direct entry on the
+    table whose address it reads, and reads the address when it runs:
+    captured once in a CUDA graph, a replay after the address changed
+    scores the other table, and a launch is counted per replay."""
+    from photon_ml_tpu_torch.ops.kernels import paged_gather_score_at
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    table, slots, idx, val = _paged_inputs(gen, cuda, 64, 512, 48, 40, dtype)
+    other = torch.randn(table.shape, generator=gen, device=cuda, dtype=dtype)
+    table_at = torch.tensor([table.data_ptr()], dtype=torch.int64,
+                            device=cuda)
+    want = paged_gather_score(table, slots, idx, val)
+    assert torch.equal(paged_gather_score_at(table_at, table, slots, idx,
+                                             val), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_gather_score_at(table_at, table, slots, idx, val)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_gather_score_at(table_at, table, slots, idx, val)
+    graph.replay()
+    assert torch.equal(out, want)
+    table_at.copy_(torch.tensor([other.data_ptr()], dtype=torch.int64))
+    graph.replay()
+    assert torch.equal(out, paged_gather_score(other, slots, idx, val))
+    with pytest.raises(ValueError, match="table_at"):
+        paged_gather_score_at(table_at.int(), table, slots, idx, val)
+
+
+@pytest.fixture(scope="module")
+def served_model(tmp_path_factory):
+    """A GAME model saved by the port: a fixed coordinate and two random
+    ones (20 users, 8 items, 3-6 local features each) over one shard of 64
+    features and the intercept; and request rows for it, some of unknown
+    users, with offsets."""
+    from photon_ml_tpu_torch import models as m
+    from photon_ml_tpu_torch.io.index_map import IndexMap
+    from photon_ml_tpu_torch.io.model_io import save_game_model
+
+    r = np.random.default_rng(23)
+    dim = 65  # 64 features and the intercept
+
+    def effect(name, prefix, n, column):
+        widths = r.integers(3, 7, n)
+        width = int(widths.max())
+        proj = np.full((n, width), -1, np.int32)
+        coef = np.zeros((n, width))
+        for e, w in enumerate(widths):
+            proj[e, :w] = np.sort(r.choice(dim, w, replace=False))
+            coef[e, :w] = r.normal(size=w)
+        return m.RandomEffectModel(
+            name, [m.RandomEffectBucket([f"{prefix}{e}" for e in range(n)],
+                                        coef, proj)],
+            "logistic", entity_column=column)
+
+    model = m.GameModel({
+        "fixed": m.FixedEffectModel(m.GeneralizedLinearModel(
+            m.Coefficients(torch.from_numpy(r.normal(size=dim))))),
+        "per_user": effect("per_user", "u", 20, "userId"),
+        "per_item": effect("per_item", "i", 8, "itemId")}, task="logistic")
+    out = str(tmp_path_factory.mktemp("served") / "model")
+    save_game_model(model, out, IndexMap({f"f{j}": j for j in range(64)},
+                                         add_intercept=True))
+    rows = []
+    for i in range(40):
+        feats = [{"name": f"f{int(j)}", "value": float(r.normal())}
+                 for j in r.choice(64, int(r.integers(1, 12)), replace=False)]
+        user = f"u{int(r.integers(0, 24))}"  # u20..u23 are unknown
+        rows.append({"features": feats, "offset": float(r.normal()),
+                     "entityIds": {"userId": user,
+                                   "itemId": f"i{int(r.integers(0, 8))}"}})
+    return out, rows
+
+
+def _serving_session(model_dir, dtype, **kw):
+    """A session on the card whose tables (4 pages of 8 rows) hold every
+    user and item of ``served_model``: every batch takes one round."""
+    from photon_ml_tpu_torch.serve import ScoringSession
+
+    return ScoringSession(model_dir, dtype=dtype, max_batch=16, re_pages=4,
+                          re_page_rows=8, device="cuda", **kw)
+
+
+def _eager_scores(session, rung, n):
+    """The last batch a rung replayed, scored again eagerly on the card
+    from its buffers: the fixed margins through ``types.margins`` and each
+    random coordinate through the direct ``paged_gather_score`` entry on
+    the table it holds now, summed in the rung's order."""
+    from photon_ml_tpu_torch.types import SparseFeatures, margins
+
+    st, b = session._state, rung.buffers
+    total, ri = b["offsets"], 0
+    for kind, name, si in st.plan:
+        dim = st.index_maps[st.shard_order[si]].size
+        if kind == "fixed":
+            m = margins(SparseFeatures(b["idx"][si], b["val"][si], dim=dim),
+                        st.resident[name])
+        else:
+            m = paged_gather_score(st.paged[name].device_buffer,
+                                   b["slots"][ri], b["idx"][si],
+                                   b["val"][si])
+            ri += 1
+        total = total + m
+    return total[:n].cpu().numpy()
+
+
+def _rung(session, n):
+    from photon_ml_tpu_torch.serve.session import bucketize
+
+    st = session._state
+    return session._compiled[("fused", bucketize(n, session.row_ladder),
+                              st.fused_sig)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_session_graph_replay_equals_eager_scoring(cuda, served_model, dtype):
+    """Warmup captures one graph per rung; each replay scores bit for bit
+    as the same batch scored eagerly on the card, unknown users by the
+    fixed effect and the item alone; no batch captures again."""
+    model_dir, rows = served_model
+    session = _serving_session(model_dir, dtype)
+    try:
+        assert session.paged_active
+        assert session.compile_count == len(session.row_ladder) == 5
+        for lo, n in ((0, 1), (1, 5), (6, 16), (22, 9), (31, 9)):
+            got = session.score_rows(rows[lo:lo + n])
+            assert np.array_equal(got, _eager_scores(session,
+                                                     _rung(session, n), n))
+        got, parts = session.score_rows(rows[:16], per_coordinate=True)
+        unknown = [i for i, r in enumerate(rows[:16])
+                   if int(r["entityIds"]["userId"][1:]) >= 20]
+        assert unknown and all(parts["per_user"][i] == 0 for i in unknown)
+        assert session.compile_count == len(session.row_ladder)
+        assert session.fixed_eager_batches == 0
+        assert session.fused_fallback_batches == 0
+    finally:
+        session.close()
+
+
+def test_session_replays_read_a_copied_table(cuda, served_model):
+    """A copy-on-write install gives the table a new buffer: the next
+    replay scores from it (the re-installed user's new coefficients), and
+    a snapshot taken before the install still scores bit for bit as it
+    did."""
+    from photon_ml_tpu_torch.serve import CoeffEntry
+
+    model_dir, rows = served_model
+    session = _serving_session(model_dir, "float32")
+    try:
+        old = session._state.coeff_caches["per_user"].get("u3")
+        u3 = {"features": [{"name": f"f{g}", "value": 1.0}
+                           for g in old.local_map if g < 64],
+              "entityIds": {"userId": "u3", "itemId": "i0"}}
+        batch = [u3] + [r for r in rows
+                        if r["entityIds"]["userId"] != "u3"][:7]
+        before = session.score_rows(batch)
+        table = session._state.paged["per_user"]
+        rung = _rung(session, len(batch))
+        buf, slots, _ = table.lookup(["u3"])
+        sl = torch.from_numpy(slots).to(cuda)
+        idx, val = rung.buffers["idx"][0][:1], rung.buffers["val"][0][:1]
+        snap = paged_gather_score(buf, sl, idx, val)
+        copies = table.snapshot_copies
+        table.install({"u3": CoeffEntry(old.local_map,
+                                        2 * old.coefficients)})
+        assert table.snapshot_copies == copies + 1
+        assert table.device_buffer is not buf
+        after = session.score_rows(batch)
+        assert after[0] != before[0]
+        assert np.array_equal(after[1:], before[1:])
+        assert np.array_equal(after, _eager_scores(session, rung,
+                                                   len(batch)))
+        assert int(rung.buffers["table_at"][0]) == \
+            table.device_buffer.data_ptr()
+        assert torch.equal(paged_gather_score(buf, sl, idx, val), snap)
+    finally:
+        session.close()
+
+
+def test_session_identical_swap_captures_nothing(cuda, served_model):
+    model_dir, rows = served_model
+    session = _serving_session(model_dir, "float32")
+    try:
+        before = session.score_rows(rows[:13])
+        captured = session.compile_count
+        first = session.active_version
+        session.swap(model_dir, version="again")
+        assert session.drain_installs(30.0)
+        assert np.array_equal(session.score_rows(rows[:13]), before)
+        assert session.rollback() == first
+        assert np.array_equal(session.score_rows(rows[:13]), before)
+        assert session.compile_count == captured
+    finally:
+        session.close()
+
+
+def test_session_launch_count_equals_the_profiled_kernels(cuda,
+                                                          served_model):
+    """Each replay adds its captured kernels to
+    ``paged_gather_score.launches``: over a run of batches the count
+    moves by the ``paged_gather_score`` kernels the profiler saw, one per
+    random coordinate per batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model_dir, rows = served_model
+    session = _serving_session(model_dir, "float32")
+    try:
+        session.score_rows(rows[:16])  # every entity resident
+        launches = paged_gather_score.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for n in (1, 3, 8, 16, 5):
+                session.score_rows(rows[:n])
+            torch.cuda.synchronize()
+        counted = paged_gather_score.launches - launches
+        seen = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "paged_gather_score" in e.name)
+        assert counted == 2 * 5 == seen
+    finally:
+        session.close()

@@ -314,6 +314,23 @@ def test_coefficient_stores_and_lru_match_jax(saved_models):
     assert layered.load("absent-1") is None
 
 
+def test_first_load_many_learns_known_ids_in_its_pass(saved_models):
+    """A fresh store's first ``load_many`` (which builds the known ids in
+    the pass that parses its records) gives the JAX store's entries and
+    absences, and leaves the JAX store's known ids behind."""
+    model_dir = saved_models
+    jstore = JaxStore(model_dir, "per_user", jax_imap(model_dir, "global"))
+    pstore = ModelDirCoefficientStore(
+        model_dir, "per_user", load_model_index_map(model_dir, "global"))
+    ids = ["absent-1"] + sorted(jstore.known_ids())[::2] + ["absent-2"]
+    jmany, pmany = jstore.load_many(ids), pstore.load_many(ids)
+    assert set(jmany) == set(pmany) == set(ids)
+    assert pmany["absent-1"] is None and pmany["absent-2"] is None
+    for eid in ids[1:-1]:
+        _same_entry(jmany[eid], pmany[eid])
+    assert pstore.known_ids() == jstore.known_ids()
+
+
 def test_membership_epochs_match_jax():
     ids = [str(i) for i in range(200)] + [f"user-{i}" for i in range(50)]
     for id_kind in ("auto", "str"):
