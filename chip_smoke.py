@@ -257,11 +257,20 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     launch per round; a snapshot taken before an evicting install scores
     bit-equal after it. It prints the rows per second, the installs'
     median times with and without a copy of the table, and one copy's
-    device time. (c) ``paged_gather_score`` against its plain version at
-    (b)'s shapes (B = 32 and 4,096, k = 40, the float32 table and a
-    float64 copy): within 4 eps of the row's sum of |terms|, unknown rows
-    0, two calls bit-identical; its, the plain version's and
-    ``embedding_bag``'s times beside the bound.
+    device time. (c) ``paged_gather_score`` on the float32 table and a
+    float64 copy at (b)'s shapes (B = 32 and 4,096, k = 40), at the
+    served rung through the pointer entry (B = 64, k = 64: the first 64
+    rows padded with index 0 and value 0, as the session pads them) and
+    at all 2^15 validation rows with slots drawn uniformly over the
+    table's 4,096 rows from the seed (every row resident): bit for bit
+    its ordered plain twin (``paged_gather_score_ordered_plain``) and its
+    other entry, within 4 eps of the row's sum of |terms| of its plain
+    version and of its previous design, unknown rows 0, two calls
+    bit-identical; then, per call and on the device's own clock, its and
+    its previous design's times in turns (previous, new, new, previous),
+    the plain version's, ``embedding_bag``'s and an empty kernel's on the
+    new grid (the floor no launch beats), beside the byte bound, and
+    which of the bound and the floor is the larger.
 
 20. the serving path (``serve/session.py``, ``batcher.py``,
     ``server.py``, ``cli/serving_driver.py``), inside phase 13's
@@ -291,9 +300,10 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     launches, and per rung the copy + replay + read-back time
     (``session.device_compute`` spans of the driver's trace). Then the
     kernel's pointer entry (``paged_gather_score_at``, the one the
-    captured graphs launch) against its plain version and the direct
-    entry at the served shape (B = 64, k = 64), and its, the plain
-    version's and ``embedding_bag``'s times.
+    captured graphs launch) against its plain version, and bit for bit
+    the direct entry and the ordered plain twin, at the served shape (B =
+    64, k = 64), and its, the plain version's and ``embedding_bag``'s
+    times.
 
 Each fit's launch count (``csc_column_sums.launches``) is set to 0 just
 before it and read just after (for phases 9, 13 and 15: before and after
@@ -306,7 +316,9 @@ each rank of phases 17 and 18 ends with a count of 0.
 ``paged_gather_score.launches`` is set to 0 just before each of phase
 19's scoring runs and read just after; in phase 20 the driver process's
 count is read from its ``/metrics`` just before and just after the
-scoring window. Its comparisons and timings do not count.
+scoring window. Its comparisons and timings do not count; the previous
+design has a count of its own (``paged_gather_score_previous.launches``)
+and runs only by name in those timings.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a ``{"kernels": [...]}`` JSON object (all three kernels), and
@@ -3598,9 +3610,11 @@ def phase_paged(best, dev, smi, peaks):
     ``score_random_effect`` on the same coefficients and rows; unknown
     users exactly 0; a snapshot taken before an evicting install scores
     bit-equal after it; one kernel launch per round of every batch. Then
-    the kernel against its plain version at these shapes in float32 and
-    float64 and their timings. Returns the kernel's line of the JSON
-    summary."""
+    (c): the kernel bit for bit its ordered plain twin and within the gate
+    of its plain version, at these shapes, the served rung (pointer entry)
+    and all validation rows at once, in float32 and float64, timed beside
+    its previous design, embedding_bag and an empty kernel (time_paged).
+    Returns the kernel's line of the JSON summary."""
     from photon_ml_tpu_torch.game.scoring import score_game_model
     from photon_ml_tpu_torch.io.model_io import load_model_index_map
     from photon_ml_tpu_torch.models import (
@@ -3735,19 +3749,39 @@ def phase_paged(best, dev, smi, peaks):
           f" GB) on the device: {refresh_ms:.4f} ms; phase 19 (b) "
           f"{time.perf_counter() - t_phase:.1f} s so far")
 
-    # (c) the kernel against its plain version at these shapes, each
-    # batch's users made resident first, as a scored batch finds them
-    shapes, err = {}, 0.0
+    # (c) the kernel against its plain version, its ordered twin and its
+    # previous design: at (b)'s batches, each batch's users made resident
+    # first, as a scored batch finds them; at the served rung (the first 64
+    # rows padded to 64 entries with index 0 and value 0, as the session
+    # pads them) through the pointer entry; and at every validation row
+    # with slots drawn uniformly over the table's rows (all resident)
+    cases = []
     for b in PAGED_BATCHES:
         paged_scores(table, lru, ids[:b], idx[:b], val[:b],
                      new_paged_stats())
         buf, sl, _ = table.lookup(ids[:b])
-        sl = torch.from_numpy(sl).to(dev)
+        cases.append((f"b{b}", buf, torch.from_numpy(sl).to(dev), idx[:b],
+                      val[:b], False))
+    b = SERVE_MAX_BATCH
+    paged_scores(table, lru, ids[:b], idx[:b], val[:b], new_paged_stats())
+    buf, sl, _ = table.lookup(ids[:b])
+    pad = SERVE_PAD_NNZ - k
+    cases.append((f"at_b{b}_k{SERVE_PAD_NNZ}", buf,
+                  torch.from_numpy(sl).to(dev),
+                  torch.nn.functional.pad(idx[:b], (0, pad)),
+                  torch.nn.functional.pad(val[:b], (0, pad)), True))
+    rows = table.device_buffer.shape[0]
+    every = np.random.default_rng(SEED).integers(0, rows, n)
+    cases.append((f"b{n}", table.device_buffer,
+                  torch.from_numpy(every.astype(np.int32)).to(dev), idx, val,
+                  False))
+    shapes, err = {}, 0.0
+    for name, buf, sl, bi, bv, at in cases:
         for dtype in (torch.float32, torch.float64):
-            t = time_paged(buf.to(dtype), sl, idx[:b], val[:b].to(dtype),
-                           peaks, smi)
+            t = time_paged(buf.to(dtype), sl, bi, bv.to(dtype), peaks, smi,
+                           at=at)
             err = max(err, t["max_abs_err"])
-            shapes[f"{str(dtype).split('.')[1]}_b{b}"] = t
+            shapes[f"{str(dtype).split('.')[1]}_{name}"] = t
     main = shapes[f"float32_b{PAGED_BATCHES[-1]}"]
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s in phases 19 "
           "(b) and (c)")
@@ -3761,9 +3795,11 @@ def phase_paged(best, dev, smi, peaks):
                              for b, v in by_batch.items()},
         "max_abs_err": err,
         "tol": f"{PAGED_EPS_GATE} eps * sum_j |table[slot, idx_j] * val_j| "
-               "per row",
+               "per row; bit-equal to paged_gather_score_ordered_plain",
         "ms": main["kernel_ms"],
         "device_ms": main["device_ms"],
+        "previous_device_ms": main["previous_device_ms"],
+        "floor_device_ms": main["floor_device_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
@@ -3776,91 +3812,166 @@ def phase_paged(best, dev, smi, peaks):
     }
 
 
-def time_paged(table, slots, idx, val, peaks, smi):
-    """paged_gather_score against its plain version on one batch, with its
-    values and with random ones (gate: PAGED_EPS_GATE eps of the row's sum
-    of |terms|, unknown rows 0, two calls bit-identical), then its, the plain
-    version's and embedding_bag's times (per call and on the device's own
-    clock) beside the bound for the same work."""
+def time_paged(table, slots, idx, val, peaks, smi, at=False):
+    """paged_gather_score (its pointer entry if ``at``) on one batch, with
+    its values and with random ones (a kernel that misread val would pass
+    on ones alone): bit for bit its ordered plain twin, the other entry's
+    bits, within PAGED_EPS_GATE eps of the row's sum of |terms| of its
+    plain version and of its previous design, unknown rows 0, two calls
+    bit-identical. Then, per call and on the device's own clock, the
+    previous design's and its times in turns (previous, kernel, kernel,
+    previous), the plain version's, embedding_bag's and an empty kernel's
+    on the kernel's grid (the floor no launch beats), beside the bound for
+    the same work."""
+    from photon_ml_tpu_torch.ops.kernel_build import load_library
     from photon_ml_tpu_torch.ops.kernels import (
-        paged_gather_score, paged_gather_score_plain,
+        launch_error, paged_gather_score, paged_gather_score_at,
+        paged_gather_score_ordered_plain, paged_gather_score_plain,
+        paged_gather_score_previous,
     )
 
     b, k = idx.shape
     launches = paged_gather_score.launches
+    table_at = torch.tensor([table.data_ptr()], dtype=torch.int64,
+                            device=table.device)
+
+    def kernel(v=val):
+        if at:
+            return paged_gather_score_at(table_at, table, slots, idx, v)
+        return paged_gather_score(table, slots, idx, v)
+
+    def other(v):
+        if at:
+            return paged_gather_score(table, slots, idx, v)
+        return paged_gather_score_at(table_at, table, slots, idx, v)
+
+    def previous(v=val):
+        return paged_gather_score_previous(table, slots, idx, v,
+                                           table_at=table_at if at else None)
+
+    lib = load_library()
+
+    def empty():
+        err = lib.photon_paged_empty(
+            b, k, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise launch_error(lib, err, "empty kernel launch")
+
     flat = (slots.clamp(min=0).to(torch.int64)[:, None] * table.shape[1]
             + idx.to(torch.int64))
     column = table.view(-1, 1)
-    # the batch as served (values 1), then random values of the table's
-    # dtype: a kernel that misread val would pass on ones alone
     gen = torch.Generator(device=table.device).manual_seed(SEED)
     err = 0.0
     for vals in (val, torch.randn(val.shape, generator=gen, dtype=val.dtype,
                                   device=val.device)):
-        got = paged_gather_score(table, slots, idx, vals)
+        got = kernel(vals)
         torch.cuda.synchronize()
+        twin = paged_gather_score_ordered_plain(table, slots, idx, vals)
+        if not torch.equal(got, twin):
+            raise RuntimeError(
+                f"paged_gather_score{'_at' if at else ''} differs from its "
+                f"ordered plain twin in {int((got != twin).sum())} of {b} "
+                f"rows at B={b}, k={k}, {table.dtype}")
         want = paged_gather_score_plain(table, slots, idx, vals)
         terms = (column.view(-1)[flat].abs() * vals.abs()).sum(dim=1)
         gate = PAGED_EPS_GATE * torch.finfo(table.dtype).eps * terms
         diff = float((got - want).abs().max())
         err = max(err, diff)
+        prev = previous(vals)
         if not (bool(((got - want).abs() <= gate).all())
+                and bool(((prev - got).abs() <= gate).all())
                 and bool((got[slots < 0] == 0).all())
-                and torch.equal(got, paged_gather_score(table, slots, idx,
-                                                        vals))):
+                and torch.equal(got, kernel(vals))
+                and torch.equal(got, other(vals))):
             raise RuntimeError(f"paged_gather_score differs from its plain "
-                               f"version at B={b}, {table.dtype}: {diff:.3e}")
+                               f"version, its previous design or its other "
+                               f"entry at B={b}, {table.dtype}: {diff:.3e}")
 
     def library():
         return torch.nn.functional.embedding_bag(
             flat, column, per_sample_weights=val, mode="sum")
 
     reps = 50
-    kernel = [cuda_ms(lambda: paged_gather_score(table, slots, idx, val),
-                      reps)]
+    turns = {"kernel": [], "previous": []}
+    dev_turns = {"kernel": [], "previous": []}
+    for name in ("previous", "kernel", "kernel", "previous"):
+        fn = kernel if name == "kernel" else previous
+        turns[name].append(cuda_ms(fn, reps))
+        dev_turns[name].append(device_ms(fn, reps))
     plain_ms = cuda_ms(lambda: paged_gather_score_plain(table, slots, idx,
                                                         val), reps)
     library_ms = cuda_ms(library, reps)
-    kernel.append(cuda_ms(lambda: paged_gather_score(table, slots, idx, val),
-                          reps))
+    floor_ms = cuda_ms(empty, reps)
     dev_ms = {name: device_ms(fn, reps) for name, fn in (
-        ("kernel", lambda: paged_gather_score(table, slots, idx, val)),
-        ("library", library))}
-    # by name: a comparison, not a path
+        ("library", library), ("floor", empty))}
+    # by name: comparisons, not a path
     checked = paged_gather_score.launches - launches
     paged_gather_score.launches = launches
+
+    def mean(xs):
+        return None if None in xs else sum(xs) / len(xs)
+
     # each input read once, each output written once: the slots, indices
-    # and values, the table elements the resident rows gather, the scores
+    # and values, the table elements the resident rows gather (and the
+    # pointer entry's address), the scores; beside it the same with each
+    # gathered element a 32-byte sector of its own, what device memory
+    # moves for a random column (repeated columns, such as the
+    # intercept's, hit the L2 instead)
     elem = table.element_size()
     resident = int((slots >= 0).sum())
-    nbytes = 4 * b + (4 + elem) * b * k + elem * resident * k + elem * b
+    stream_bytes = 4 * b + (4 + elem) * b * k + elem * b + (8 if at else 0)
+    nbytes = stream_bytes + elem * resident * k
+    sector_bytes = stream_bytes + 32 * resident * k
     ops = 2 * resident * k
     bw, f32_rate, f64_rate = peaks
     rate = f32_rate if table.dtype == torch.float32 else f64_rate
     bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
-    t = {"b": b, "k": k, "dtype": str(table.dtype), "resident_rows": resident,
-         "bytes": nbytes, "kernel_ms": sum(kernel) / 2,
-         "kernel_ms_runs": kernel, "plain_ms": plain_ms,
-         "library_ms": library_ms, "device_ms": dev_ms["kernel"],
+    bound = max(bytes_ms, ops_ms)
+    floor_dev = dev_ms["floor"]
+    t = {"b": b, "k": k, "dtype": str(table.dtype),
+         "entry": "pointer" if at else "direct", "resident_rows": resident,
+         "bytes": nbytes, "kernel_ms": mean(turns["kernel"]),
+         "kernel_ms_runs": turns["kernel"],
+         "previous_ms": mean(turns["previous"]),
+         "previous_ms_runs": turns["previous"], "plain_ms": plain_ms,
+         "library_ms": library_ms, "floor_ms": floor_ms,
+         "device_ms": mean(dev_turns["kernel"]),
+         "device_ms_runs": dev_turns["kernel"],
+         "previous_device_ms": mean(dev_turns["previous"]),
+         "previous_device_ms_runs": dev_turns["previous"],
          "library_device_ms": dev_ms["library"],
-         "bound_ms": max(bytes_ms, ops_ms),
+         "floor_device_ms": floor_dev,
+         "bound_ms": bound,
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+         "sector_bytes": sector_bytes,
+         "sector_bound_ms": sector_bytes / bw * 1e3,
+         "limited_by": (None if floor_dev is None
+                        else "floor" if floor_dev >= bound else "bound"),
          "max_abs_err": err, "checked_launches": checked}
-    print(f"paged_gather_score B={b} k={k} {table.dtype} ({resident} rows "
-          f"resident): max |kernel - plain| {err:.3e} (gate "
-          f"{PAGED_EPS_GATE} eps sum |terms|); kernel {kernel[0]:.4f} / "
-          f"{kernel[1]:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag "
-          f"{library_ms:.4f} ms; device time per call: kernel "
-          f"{_ms(dev_ms['kernel'])}, embedding_bag "
-          f"{_ms(dev_ms['library'])}; bound {t['bound_ms']:.6f} ms "
-          f"({nbytes / 1e6:.3f} MB by {t['bound_by']}) on {smi}")
+    print(f"paged_gather_score{'_at' if at else ''} B={b} k={k} "
+          f"{table.dtype} ({resident} rows resident): bit-equal to its "
+          f"ordered plain twin and its other entry; max |kernel - plain| "
+          f"{err:.3e} (gate {PAGED_EPS_GATE} eps sum |terms|); per call: "
+          f"previous {turns['previous'][0]:.4f} / kernel "
+          f"{turns['kernel'][0]:.4f} / kernel {turns['kernel'][1]:.4f} / "
+          f"previous {turns['previous'][1]:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, embedding_bag {library_ms:.4f} ms, empty kernel "
+          f"{floor_ms:.4f} ms; device time per call: previous "
+          f"{_ms(dev_turns['previous'][0])} / kernel "
+          f"{_ms(dev_turns['kernel'][0])} / kernel "
+          f"{_ms(dev_turns['kernel'][1])} / previous "
+          f"{_ms(dev_turns['previous'][1])}, embedding_bag "
+          f"{_ms(dev_ms['library'])}, empty kernel {_ms(floor_dev)}; bound "
+          f"{bound:.6f} ms ({nbytes / 1e6:.3f} MB by {t['bound_by']}; "
+          f"{t['sector_bound_ms']:.6f} ms at a sector per gather), limited "
+          f"by the {t['limited_by']} on {smi}")
     return t
-
 
 
 # -- phase 20: the serving driver ------------------------------------------
 SERVE_DRIVER = [sys.executable, "-m", "photon_ml_tpu_torch.cli.serving_driver"]
 SERVE_MAX_BATCH, SERVE_CLIENTS = 64, 4
+SERVE_PAD_NNZ = 64  # the session's padded entries per row (its pad_nnz)
 SERVE_PAGES, SERVE_PAGE_ROWS = 16, 256  # per random coordinate, as phase 19
 SERVE_LRU = 1 << 16  # LRU entries: every validation user and item stays
 SERVE_PROBES = 32  # requests sent one at a time before and after the reload
@@ -3945,7 +4056,8 @@ def phase_serve(best, ref, dev, smi, peaks):
     import threading
 
     from photon_ml_tpu_torch.ops.kernels import (
-        paged_gather_score, paged_gather_score_at, paged_gather_score_plain,
+        paged_gather_score, paged_gather_score_at,
+        paged_gather_score_ordered_plain, paged_gather_score_plain,
     )
     from photon_ml_tpu_torch.serve.session import bucket_ladder, bucketize
 
@@ -4179,7 +4291,9 @@ def phase_serve(best, ref, dev, smi, peaks):
     gate = PAGED_EPS_GATE * torch.finfo(table.dtype).eps * terms
     err = float((at - want).abs().max())
     if not (bool(((at - want).abs() <= gate).all())
-            and torch.equal(at, paged_gather_score(table, slots, idx, val))):
+            and torch.equal(at, paged_gather_score(table, slots, idx, val))
+            and torch.equal(at, paged_gather_score_ordered_plain(
+                table, slots, idx, val))):
         raise RuntimeError(f"paged_gather_score_at differs: {err:.3e}")
     reps = 50
     at_ms = cuda_ms(lambda: paged_gather_score_at(table_at, table, slots,
@@ -4204,7 +4318,8 @@ def phase_serve(best, ref, dev, smi, peaks):
     bytes_ms = nbytes / peaks[0] * 1e3
     ops_ms = 2 * resident * k / peaks[1] * 1e3
     print(f"  paged_gather_score_at B={b} k={k} float32: max |kernel - "
-          f"plain| {err:.3e}, bit-equal to the direct entry; kernel "
+          f"plain| {err:.3e}, bit-equal to the direct entry and the ordered "
+          f"plain twin; kernel "
           f"{at_ms:.4f} ms per call, plain {plain_ms:.4f} ms, embedding_bag "
           f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms; host "
           f"math differs from the kernel in {host_bits_differ} of "
@@ -4379,7 +4494,8 @@ def main() -> int:
             phase_serve(best, scores, dev, smi, peaks)))
     paged_kernel["launches_by_path"]["serving_driver"] = serve["launches"]
     paged_kernel["launches"] += serve["launches"]
-    paged_kernel["shapes"]["at_float32_b64_k64"] = serve.pop("at_b64_k64")
+    paged_kernel["shapes"]["random_table_at_float32_b64_k64"] = serve.pop(
+        "at_b64_k64")
     paged_kernel["serving_driver"] = serve
     launches_by_path["game_cd_streaming"] = phase_game_stream(game_ctx, dev,
                                                               smi)

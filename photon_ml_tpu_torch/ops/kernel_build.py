@@ -18,11 +18,16 @@ import os
 import subprocess
 from pathlib import Path
 
-from photon_ml_tpu_torch.ops.kernels import COLUMN_RANGE, COLUMN_SUB
+from photon_ml_tpu_torch.ops.kernels import (
+    COLUMN_RANGE, COLUMN_SUB, paged_chunk, paged_lanes,
+)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the row widths at which the loader holds paged_gather_score's order
+# against its plain twin's: every k up to 1,024, then powers of two
+PAGED_ORDER_KS = list(range(1025)) + [1 << p for p in range(11, 31)]
 
 
 def _sources() -> list[Path]:
@@ -84,7 +89,8 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use, with every function's
     argument types declared (pointers and the stream as ``c_void_p``);
-    raises if its column-sum order is not the plain version's."""
+    raises if its column-sum order or its paged score order is not the
+    plain version's."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
     for name in ("photon_mps_f32", "photon_mps_f64"):
@@ -95,13 +101,17 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 8 + [i64, i64, i64, ptr]
         fn.restype = ctypes.c_int
-    for name in ("photon_paged_gather_score_f32",
-                 "photon_paged_gather_score_f64",
-                 "photon_paged_gather_score_at_f32",
-                 "photon_paged_gather_score_at_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 5 + [i64, i64, i64, ptr]
-        fn.restype = ctypes.c_int
+    for entry in ("", "_at", "_prev", "_prev_at"):
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"photon_paged_gather_score{entry}_{dt}")
+            fn.argtypes = [ptr] * 5 + [i64, i64, i64, ptr]
+            fn.restype = ctypes.c_int
+    lib.photon_paged_empty.argtypes = [i64, i64, ptr]
+    lib.photon_paged_empty.restype = ctypes.c_int
+    lib.photon_paged_lanes.argtypes = [i64]
+    lib.photon_paged_lanes.restype = ctypes.c_int
+    lib.photon_paged_chunk.argtypes = [i64]
+    lib.photon_paged_chunk.restype = i64
     for name in ("photon_mps_tile", "photon_csc_range", "photon_csc_sub"):
         fn = getattr(lib, name)
         fn.argtypes = []
@@ -112,8 +122,22 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError(
             f"csc_column_sums sums ranges of {got[0]} in runs of {got[1]}, "
             f"its plain version {COLUMN_RANGE} and {COLUMN_SUB}")
+    check_paged_order(lib)
     for name in ("photon_cuda_error_name", "photon_cuda_error_string"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
     return lib
+
+
+def check_paged_order(lib) -> None:
+    """Raise unless the library's paged_gather_score cuts a row of every
+    width in ``PAGED_ORDER_KS`` into the lanes and chunks that
+    ``paged_gather_score_ordered_plain`` forms."""
+    for k in PAGED_ORDER_KS:
+        got = (lib.photon_paged_lanes(k), lib.photon_paged_chunk(k))
+        if got != (paged_lanes(k), paged_chunk(k)):
+            raise RuntimeError(
+                f"paged_gather_score sums a row of k = {k} in {got[0]} "
+                f"lanes of {got[1]}, its ordered plain twin in "
+                f"{paged_lanes(k)} of {paged_chunk(k)}")

@@ -22,7 +22,11 @@ the counterpart of the JAX module's plain-``jnp`` ``paged_gather_score``
 same kernel through its second entry, which reads the table's address
 from the card when it runs: the scoring session's CUDA graphs launch it,
 so a graph captured once scores whichever snapshot of the table its
-batch holds.
+batch holds. The kernel sums a row in a fixed order that depends on k
+alone (``paged_lanes`` lanes a row, each adding its ``paged_chunk``
+entries in index order, then a halving tree over the lanes), which
+``paged_gather_score_ordered_plain`` repeats bit for bit; the tests and
+``chip_smoke.py`` hold the kernel to it, and no path runs it.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it takes its plain PyTorch version below, which the tests and
@@ -43,6 +47,18 @@ COLUMN_RANGE = 2048  # nonzeros per block of the CUDA kernel (its kRange)
 COLUMN_SUB = 8  # nonzeros per thread of the CUDA kernel (its kPerThread);
 # load_library checks both against the library
 _MAX_NNZ = (1 << 31) - 1 - COLUMN_RANGE  # int32 positions, and a range
+
+
+def paged_lanes(k: int) -> int:
+    """Lanes that sum one row of ``paged_gather_score``'s kernel (its
+    ``group_lanes``; load_library checks the two agree)."""
+    return 8 if k <= 64 else 16 if k <= 128 else 32
+
+
+def paged_chunk(k: int) -> int:
+    """Entries of a row each lane sums, in index order (the kernel's
+    ``chunk_len``): lane ``l`` owns ``[l * c, min((l + 1) * c, k))``."""
+    return -(-k // paged_lanes(k))
 
 
 def multiply_prefix_sum_plain(values: Optional[torch.Tensor],
@@ -266,13 +282,44 @@ def paged_gather_score_plain(table: torch.Tensor, slots: torch.Tensor,
                              values: torch.Tensor) -> torch.Tensor:
     """Plain version: one flat ``index_select`` over ``slot * D + index``
     (int64) and a row sum, then 0 selected where ``slots < 0``."""
+    score = _paged_products(table, slots, indices, values).sum(dim=-1)
+    return torch.where(slots >= 0, score, torch.zeros((), dtype=table.dtype,
+                                                      device=table.device))
+
+
+def _paged_products(table, slots, indices, values):
     dim = table.shape[1]
     flat = (slots.clamp(min=0).to(torch.int64)[:, None] * dim
             + indices.to(torch.int64))
     picked = table.reshape(-1).index_select(0, flat.reshape(-1))
-    score = (picked.view(flat.shape) * values).sum(dim=-1)
-    return torch.where(slots >= 0, score, torch.zeros((), dtype=table.dtype,
-                                                      device=table.device))
+    return picked.view(flat.shape) * values
+
+
+def paged_gather_score_ordered_plain(table: torch.Tensor,
+                                     slots: torch.Tensor,
+                                     indices: torch.Tensor,
+                                     values: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_gather_score_plain` in the kernel's order, on tensors
+    of any device: the products cut into ``paged_lanes(k)`` chunks of
+    ``paged_chunk(k)`` (the last ones short or empty, padded with +0,
+    which adds nothing to a sum that starts at +0), each chunk summed in
+    index order from 0, then the chunks' sums added first half plus second
+    half until one is left (the kernel's xor butterfly), 0 selected where
+    ``slots < 0``. Every step is one IEEE multiply or add, so it gives the
+    kernel's bits. Used by the tests and ``chip_smoke.py`` only."""
+    b, k = indices.shape
+    lanes, c = paged_lanes(k), paged_chunk(k)
+    padded = table.new_zeros(b, lanes * c)
+    padded[:, :k] = _paged_products(table, slots, indices, values)
+    chunks = padded.view(b, lanes, c)
+    acc = table.new_zeros(b, lanes)
+    for j in range(c):
+        acc = acc + chunks[:, :, j]
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    return torch.where(slots >= 0, acc[:, 0], torch.zeros(
+        (), dtype=table.dtype, device=table.device))
 
 
 def _check_paged(table, slots, indices, values):
@@ -303,7 +350,10 @@ def _check_paged(table, slots, indices, values):
                              f"{table.device}")
 
 
-def _launch_paged(table, slots, indices, values):
+def _launch_paged(entry, first, table, slots, indices, values, counted):
+    """Launch ``photon_paged_gather_score{entry}_f32/_f64`` with ``first``
+    (the table, or the int64 that holds its address) and add one to
+    ``counted.launches``."""
     from photon_ml_tpu_torch.ops.kernel_build import load_library
 
     lib = load_library()
@@ -311,16 +361,16 @@ def _launch_paged(table, slots, indices, values):
     out = torch.empty(b, dtype=table.dtype, device=table.device)
     if b == 0:
         return out  # nothing to launch
-    fn = (lib.photon_paged_gather_score_f32 if table.dtype == torch.float32
-          else lib.photon_paged_gather_score_f64)
+    fn = getattr(lib, f"photon_paged_gather_score{entry}_"
+                      f"{'f32' if table.dtype == torch.float32 else 'f64'}")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), slots.data_ptr(), indices.data_ptr(),
+        err = fn(first.data_ptr(), slots.data_ptr(), indices.data_ptr(),
                  values.data_ptr(), out.data_ptr(), b, k, table.shape[1],
                  stream)
     if err != 0:
         raise launch_error(lib, err, "paged_gather_score kernel launch")
-    paged_gather_score.launches += 1
+    counted.launches += 1
     return out
 
 
@@ -336,40 +386,20 @@ def paged_gather_score(table: torch.Tensor, slots: torch.Tensor,
     nonnegative one below ``S``; ``indices`` int32 ``[B, k]`` in ``[0, D)``
     and ``values`` ``[B, k]`` of the table's dtype, all contiguous on one
     device. The offsets are formed in 64 bits. CUDA tensors go to the
-    kernel (one launch, the products summed in index order), CPU tensors
-    to the plain version; anything else raises.
+    kernel (one launch; the sum in the fixed order of
+    :func:`paged_gather_score_ordered_plain`), CPU tensors to the plain
+    version; anything else raises.
     ``paged_gather_score.launches`` counts the kernel's launches."""
     _check_paged(table, slots, indices, values)
     if table.device.type == "cuda":
-        return _launch_paged(table, slots, indices, values)
+        return _launch_paged("", table, table, slots, indices, values,
+                             paged_gather_score)
     if table.device.type == "cpu":
         return paged_gather_score_plain(table, slots, indices, values)
     raise ValueError(f"unsupported device {table.device}")
 
 
 paged_gather_score.launches = 0
-
-
-def _launch_paged_at(table_at, table, slots, indices, values):
-    from photon_ml_tpu_torch.ops.kernel_build import load_library
-
-    lib = load_library()
-    b, k = indices.shape
-    out = torch.empty(b, dtype=table.dtype, device=table.device)
-    if b == 0:
-        return out  # nothing to launch
-    fn = (lib.photon_paged_gather_score_at_f32
-          if table.dtype == torch.float32
-          else lib.photon_paged_gather_score_at_f64)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table_at.data_ptr(), slots.data_ptr(), indices.data_ptr(),
-                 values.data_ptr(), out.data_ptr(), b, k, table.shape[1],
-                 stream)
-    if err != 0:
-        raise launch_error(lib, err, "paged_gather_score kernel launch")
-    paged_gather_score.launches += 1
-    return out
 
 
 def paged_gather_score_at(table_at: torch.Tensor, table: torch.Tensor,
@@ -384,14 +414,46 @@ def paged_gather_score_at(table_at: torch.Tensor, table: torch.Tensor,
     alive until the kernel has run. CUDA tensors go to the kernel's second
     entry (one launch, counted in ``paged_gather_score.launches``), CPU
     tensors to the plain version on ``table`` itself."""
+    _check_paged_at(table_at, table, slots, indices, values)
+    if table.device.type == "cuda":
+        return _launch_paged("_at", table_at, table, slots, indices, values,
+                             paged_gather_score)
+    if table.device.type == "cpu":
+        return paged_gather_score_plain(table, slots, indices, values)
+    raise ValueError(f"unsupported device {table.device}")
+
+
+def _check_paged_at(table_at, table, slots, indices, values):
     _check_paged(table, slots, indices, values)
     if (table_at.numel() != 1 or table_at.dtype != torch.int64
             or table_at.device != table.device):
         raise ValueError("table_at must be one int64 on the table's device, "
                          f"got {tuple(table_at.shape)} {table_at.dtype} on "
                          f"{table_at.device}")
+
+
+def paged_gather_score_previous(table: torch.Tensor, slots: torch.Tensor,
+                                indices: torch.Tensor, values: torch.Tensor,
+                                table_at: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """The kernel's previous design (one warp per row, the products summed
+    in index order through shuffles), through its direct entry or, given
+    ``table_at``, its pointer entry: a yardstick that ``chip_smoke.py``
+    times beside the kernel, on no path. Counted in its own
+    ``paged_gather_score_previous.launches``, never in
+    ``paged_gather_score.launches``. CPU tensors take the plain version."""
+    if table_at is None:
+        _check_paged(table, slots, indices, values)
+    else:
+        _check_paged_at(table_at, table, slots, indices, values)
     if table.device.type == "cuda":
-        return _launch_paged_at(table_at, table, slots, indices, values)
+        at = table_at is not None
+        return _launch_paged("_prev_at" if at else "_prev",
+                             table_at if at else table, table, slots,
+                             indices, values, paged_gather_score_previous)
     if table.device.type == "cpu":
         return paged_gather_score_plain(table, slots, indices, values)
     raise ValueError(f"unsupported device {table.device}")
+
+
+paged_gather_score_previous.launches = 0

@@ -40,7 +40,8 @@ Design points:
   read (a row of an evicted page, a re-installed entity) first clones
   the whole buffer on the device (``snapshot_copies`` counts them), so
   the snapshot's buffer keeps its rows; a compaction always builds a new
-  buffer. A clone moves the table twice through device memory (2.1 GB at
+  buffer. The kernel's sum depends on the row's width alone, so a
+  snapshot scores bit for bit as before an install. A clone moves the table twice through device memory (2.1 GB at
   4,096 x 2^16 float32) and holds a second table while the snapshot
   lives.
 * **Negative entries are host-side only.** Entities the store does not

@@ -992,7 +992,10 @@ class ScoringSession:
         replay. Cold entities (resident in neither pages nor the absent
         set) fault through the LRU and are installed into pages BEFORE
         the replay — the disk read dominates a cold fault anyway, and one
-        margin path keeps scores bitwise-stable across identical swaps.
+        margin path keeps scores bitwise-stable across identical swaps:
+        the kernel sums a row in an order fixed by its width alone
+        (``ops.kernels.paged_gather_score_ordered_plain``), whichever
+        slot, page or snapshot holds its entity.
 
         An install may evict a page that holds entities the same batch
         found resident (every page was touched by the batch). The JAX

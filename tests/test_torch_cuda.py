@@ -17,7 +17,8 @@ from photon_ml_tpu_torch.interop import batch_from_numpy
 from photon_ml_tpu_torch.ops.kernels import (
     TILE, csc_column_sums, csc_column_sums_plain, csc_transpose_apply_kernel,
     multiply_prefix_sum, multiply_prefix_sum_plain, paged_gather_score,
-    paged_gather_score_plain,
+    paged_gather_score_at, paged_gather_score_ordered_plain,
+    paged_gather_score_plain, paged_gather_score_previous,
 )
 from photon_ml_tpu_torch.ops.objective import make_objective
 from photon_ml_tpu_torch.optimize.common import OptimizerConfig
@@ -174,19 +175,23 @@ def _paged_inputs(gen, dev, slots_n, dim, b, k, dtype):
 
 def _paged_gate(table, slots, idx, val):
     """4 eps * sum_j |table[slot, idx_j] * val_j| per row: the kernel sums
-    the k products in index order, torch's row sum in its own order, and
-    two orders of the same k terms differ by a few ulps of sum |terms|."""
+    a row in lanes and a tree over them (the order of
+    ``paged_gather_score_ordered_plain``), torch's row sum in its own
+    order, and two orders of the same k terms differ by a few ulps of
+    sum |terms|."""
     terms = paged_gather_score_plain(table.abs(), slots, idx, val.abs())
     return 4 * torch.finfo(table.dtype).eps * terms
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b,k", [(0, 39), (1, 1), (33, 39), (300, 70),
-                                 (4096, 39)])
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 8, 39, 40, 63, 64, 65, 130])
+@pytest.mark.parametrize("b", [0, 1, 7, 64, 4099])
 def test_paged_gather_score_matches_plain(cuda, dtype, b, k):
     """The kernel against its plain version on the card: within the
     per-row gate, exactly 0 where the slot is -1, one launch per call (none
-    for an empty batch), and two runs bit-identical."""
+    for an empty batch), two runs bit-identical, and both entries bit for
+    bit the ordered plain twin (k on both sides of every lane count's
+    edge, B not a multiple of a block's rows)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(b * 131 + k)
     table, slots, idx, val = _paged_inputs(gen, cuda, 64, 1024, b, k, dtype)
@@ -200,6 +205,80 @@ def test_paged_gather_score_matches_plain(cuda, dtype, b, k):
                                                    val)).all())
     assert bool((got[slots < 0] == 0).all())
     assert torch.equal(got, paged_gather_score(table, slots, idx, val))
+    twin = paged_gather_score_ordered_plain(table, slots, idx, val)
+    assert torch.equal(got, twin)
+    table_at = torch.tensor([table.data_ptr()], dtype=torch.int64,
+                            device=cuda)
+    assert torch.equal(paged_gather_score_at(table_at, table, slots, idx,
+                                             val), twin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 64, 130])
+def test_paged_gather_score_rows_off_16_bytes(cuda, dtype, k):
+    """Index and value rows that start one element past a 16-byte
+    boundary (a contiguous view at an odd offset of a longer buffer): the
+    kernel takes its scalar loads there and still gives the twin's bits,
+    through both entries."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    b = 67
+    table, slots, idx, val = _paged_inputs(gen, cuda, 64, 1024, b * k + 1,
+                                           1, dtype)
+    idx, val = idx.view(-1)[1:].view(b, k), val.view(-1)[1:].view(b, k)
+    slots = slots[:b]
+    assert idx.data_ptr() % 16 and val.data_ptr() % 16
+    twin = paged_gather_score_ordered_plain(table, slots, idx, val)
+    assert torch.equal(paged_gather_score(table, slots, idx, val), twin)
+    table_at = torch.tensor([table.data_ptr()], dtype=torch.int64,
+                            device=cuda)
+    assert torch.equal(paged_gather_score_at(table_at, table, slots, idx,
+                                             val), twin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_paged_gather_score_previous_design_agrees_counted_apart(cuda,
+                                                                 dtype):
+    """The previous design (a timing yardstick, on no path), through both
+    of its entries, within the gate of the kernel; its launches counted in
+    its own count and not in ``paged_gather_score.launches``."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(29)
+    table, slots, idx, val = _paged_inputs(gen, cuda, 64, 1024, 300, 40,
+                                           dtype)
+    table_at = torch.tensor([table.data_ptr()], dtype=torch.int64,
+                            device=cuda)
+    got = paged_gather_score(table, slots, idx, val)
+    launches = paged_gather_score.launches
+    previous = paged_gather_score_previous.launches
+    gate = _paged_gate(table, slots, idx, val)
+    for prev in (paged_gather_score_previous(table, slots, idx, val),
+                 paged_gather_score_previous(table, slots, idx, val,
+                                             table_at=table_at)):
+        assert bool(((prev - got).abs() <= gate).all())
+        assert bool((prev[slots < 0] == 0).all())
+    assert paged_gather_score.launches == launches
+    assert paged_gather_score_previous.launches == previous + 2
+
+
+def test_load_library_refuses_another_paged_order(cuda):
+    """The built library's lanes and chunks are the twin's; a library
+    that reported others for one width is refused."""
+    from photon_ml_tpu_torch.ops import kernel_build
+    from photon_ml_tpu_torch.ops.kernels import paged_chunk
+
+    lib = kernel_build.load_library()
+    kernel_build.check_paged_order(lib)
+
+    class Other:
+        photon_paged_lanes = staticmethod(lib.photon_paged_lanes)
+
+        @staticmethod
+        def photon_paged_chunk(k):
+            return paged_chunk(k) + (k == 40)
+
+    with pytest.raises(RuntimeError, match="k = 40"):
+        kernel_build.check_paged_order(Other())
 
 
 def test_paged_gather_score_selects_zero_and_64_bit_offsets(cuda):

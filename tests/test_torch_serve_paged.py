@@ -33,7 +33,8 @@ from photon_ml_tpu.serve.paged_table import (
 )
 from photon_ml_tpu_torch.io.model_io import load_model_index_map
 from photon_ml_tpu_torch.ops.kernels import (
-    paged_gather_score, paged_gather_score_plain,
+    paged_gather_score, paged_gather_score_ordered_plain,
+    paged_gather_score_plain,
 )
 from photon_ml_tpu_torch.parallel import fault_injection
 from photon_ml_tpu_torch.serve import (
@@ -67,16 +68,37 @@ def _batch(seed, slots_n, b, k, dtype):
     return table, slots, idx, val
 
 
+# the ordered twin at widths that are (8, 64) and are not (1, 9, 39, 65,
+# 130) multiples of the kernel's lanes per row
+_ORDERED = [(1, 1), (37, 9), (200, 39), (24, 8), (40, 64), (30, 65),
+            (20, 130)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("b,k", [(1, 1), (37, 9), (200, 39)])
-def test_paged_gather_score_plain_matches_jax(dtype, b, k):
+@pytest.mark.parametrize("b,k,twin", [
+    pytest.param(b, k, False, id=f"{b}-{k}")
+    for b, k in ((1, 1), (37, 9), (200, 39))] + [
+    pytest.param(b, k, True, id=f"ordered-{b}-{k}") for b, k in _ORDERED])
+def test_paged_gather_score_plain_matches_jax(dtype, b, k, twin):
+    """The plain version, and the kernel's ordered twin, against the JAX
+    function within ``TOL``; the twin also within 4 eps * sum |terms| per
+    row of the plain version (two orders of the same k terms)."""
     table, slots, idx, val = _batch(b * 7 + k, 16, b, k, dtype)
     want = np.asarray(jax_paged_gather_score(table, slots, idx, val))
     args = [torch.from_numpy(a) for a in (table, slots, idx, val)]
-    got = paged_gather_score_plain(*args)
+    fn = paged_gather_score_ordered_plain if twin else \
+        paged_gather_score_plain
+    got = fn(*args)
     assert got.dtype == dtype and got.shape == (b,)
     assert np.abs(got.numpy() - want).max() <= TOL[dtype]
     assert bool((got[args[1] < 0] == 0).all())
+    if twin:
+        plain = paged_gather_score_plain(*args)
+        terms = paged_gather_score_plain(args[0].abs(), args[1], args[2],
+                                         args[3].abs())
+        gate = 4 * torch.finfo(dtype).eps * terms
+        assert bool(((got - plain).abs() <= gate).all())
+        return
     # the wrapper takes the plain version for CPU tensors and counts no
     # launch
     launches = paged_gather_score.launches
