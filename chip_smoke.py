@@ -274,7 +274,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
 
 20. the serving path (``serve/session.py``, ``batcher.py``,
     ``server.py``, ``cli/serving_driver.py``), inside phase 13's
-    directory: the serving driver as a subprocess (``--device cuda``, the
+    directory, beside phase 21's two lifecycle workers (PR 14 on): the
+    serving driver as a subprocess (``--device cuda``, the
     script's own device) on the saved ``best`` model at full width (d =
     2^16 and the intercept, 100,000 users, 10,000 items), both random
     coordinates on paged tables (``--re-dense-dim-max 65537 --re-pages 16
@@ -305,6 +306,41 @@ Phases, each of which raises on failure (so any failure exits non-zero):
     64, k = 64), and its, the plain version's and ``embedding_bag``'s
     times.
 
+21. the model lifecycle and multi-replica serving (``registry/``,
+    ``serve/aserver.py``, ``serve/watcher.py``,
+    ``cli/model_publish_driver.py``, the serving driver's registry and
+    replica modes), inside phase 13's directory: (a) phase 13's training
+    driver ran with ``--publish-to``: the registry holds v000001, LATEST,
+    whose artifact fingerprints equal ``best/``'s; (b) the serving driver
+    as a subprocess with ``--registry --replicas 2 --server async --hedge
+    --watch-interval-s 1`` and phase 20's table flags on the card: the
+    front door and two replica processes, each replica's
+    ``/admin/membership`` prefetch of the served users and items at the
+    same time, then the first 2^13 validation rows as requests of 1-64
+    rows from 4 clients through the door and 128 of those requests one at
+    a time; meanwhile two worker processes (``chip_smoke.py
+    --registry-worker refused|delta``, started after phase 19 (c), so
+    that their model reads and writes overlap phase 20): one publishes a candidate with the
+    fixed effect negated through ``model_publish_driver`` with the
+    validation files as gate data (AUC on the card, a tolerance of 0.01);
+    the other builds the delta candidate (``best/`` with 1,024 seeded
+    served users' per-user records scaled by 0.5), publishes it with
+    ``--delta`` once the first candidate is in the registry, materializes
+    it and gates it, and the gate's promotion waits until the door's
+    v000001 traffic is done. Gates: the refused candidate exits 3 and LATEST stays v000001; the delta holds those
+    users' records only; every request 200, every score within 1e-5 of
+    the scoring driver's ``score_game_model`` under v000001 and of the
+    gate's ``score_game_model`` of the materialized delta after it; both
+    replicas' watchers serve the delta within 60 s of the promotion; the
+    probes' per-user parts of the scaled users exactly halved and every
+    other part bit-equal; per replica one capture per rung and none after
+    (across the swap), the off-rung counters 0, launches twice the
+    replays; SIGTERM: the door stops, each replica drains and exits 0, the
+    driver exits 0, and its parent process never created a CUDA context.
+    It prints the seconds to ready, to prefetch, to swap and to gate,
+    rows/s, p50/p99 through the door, batches, replays and launches per
+    replica, and the hedges fired.
+
 Each fit's launch count (``csc_column_sums.launches``) is set to 0 just
 before it and read just after (for phases 9, 13 and 15: before and after
 each driver run; for phases 10 and 12: before and after each of the four
@@ -316,7 +352,9 @@ each rank of phases 17 and 18 ends with a count of 0.
 ``paged_gather_score.launches`` is set to 0 just before each of phase
 19's scoring runs and read just after; in phase 20 the driver process's
 count is read from its ``/metrics`` just before and just after the
-scoring window. Its comparisons and timings do not count; the previous
+scoring window, and in phase 21 each replica's from the door's
+``/fd/metrics`` just before the first scoring window and just after the
+last probe. Its comparisons and timings do not count; the previous
 design has a count of its own (``paged_gather_score_previous.launches``)
 and runs only by name in those timings.
 
@@ -1872,7 +1910,8 @@ def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
                 "--evaluators", "auc", "--tuning-mode", "bayesian",
                 "--tuning-iters", str(GAME_TUNING_ROUNDS),
                 "--tuning-coordinates", "fixed", "--device", str(dev),
-                "--output-dir", out]
+                "--output-dir", out,
+                "--publish-to", registry_paths(root)["registry"]]
         fixed_fits, builds, scored, finals = [], [], [], []
         real_fit, real_get = descent._FixedState.fit, descent.get_evaluator
         real_build = descent.CoordinateDescent._build_random_states
@@ -1931,6 +1970,7 @@ def phase_game_driver(dev, smi, n=GAME_ROWS, n_val=GAME_VAL_ROWS,
             game_training_driver.GameEstimator = real_estimator
         if rc != 0:
             raise RuntimeError(f"game_training_driver exited with {rc}")
+        check_bootstrap_publish(root)
         log = read_log(out)
         read = next(e for e in log if e["event"] == "data_read")
         print(f"game_training_driver: {seconds:.3f} s in all, {launches} "
@@ -4343,6 +4383,621 @@ def phase_serve(best, ref, dev, smi, peaks):
             "driver_done_launches": done["kernel_launches"]}
 
 
+# -- phase 21: the registry, the front door and two replicas --------------
+REGISTRY_REPLICAS = 2
+REGISTRY_ROWS = 1 << 13  # the first validation rows, served through the door
+REGISTRY_PROBES = 128  # requests sent one at a time before and after the swap
+DELTA_USERS, DELTA_SCALE = 1024, 0.5  # per-user records scaled in the delta
+SWAP_LIMIT_S = 60.0  # promotion -> every replica serving the delta
+REGISTRY_WAIT_S = 900  # the worker's and the driver's longest wait
+REGISTRY_DEVICE = "cuda"  # where the worker's gates score
+GATE_TOLERANCE = 0.01  # AUC a candidate may lose and still be promoted
+
+
+def registry_paths(root):
+    import os
+
+    return {"best": os.path.join(root, "out", "best"),
+            "val": os.path.join(root, "validation"),
+            "registry": os.path.join(root, "registry"),
+            "work": os.path.join(root, "registry_work")}
+
+
+def _tree_sha256(model_dir):
+    import hashlib
+    import os
+
+    out = {}
+    for dirpath, _dirs, files in os.walk(model_dir):
+        for name in sorted(files):
+            full = os.path.join(dirpath, name)
+            with open(full, "rb") as f:
+                out[os.path.relpath(full, model_dir)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return out
+
+
+def check_bootstrap_publish(root):
+    """Phase 21 (a), right after the training driver ran with
+    ``--publish-to``: the registry holds one version, LATEST, whose
+    artifacts' fingerprints equal those of the saved ``best/``."""
+    from photon_ml_tpu_torch.registry import ModelRegistry
+    from photon_ml_tpu_torch.registry.store import artifact_fingerprints
+
+    paths = registry_paths(root)
+    registry = ModelRegistry(paths["registry"])
+    latest = registry.read_latest()
+    fingerprints = artifact_fingerprints(registry.version_dir("v000001"))
+    registry.verify("v000001")
+    same = fingerprints == _tree_sha256(paths["best"])
+    print(f"phase 21 (a): bootstrap publish: versions "
+          f"{registry.list_versions()}, LATEST {latest}, "
+          f"{len(fingerprints)} artifact fingerprints equal best/'s: {same}")
+    if not (latest == "v000001" and registry.list_versions() == [latest]
+            and same):
+        raise RuntimeError("the training driver's bootstrap publish is not "
+                           "best/ as LATEST v000001")
+
+
+def registry_worker(kind: str, root: str) -> int:
+    """``chip_smoke.py --registry-worker KIND ROOT``: phase 21's model
+    lifecycle in processes of their own, beside the serving driver.
+    ``refused``: a candidate with the fixed effect negated through
+    ``model_publish_driver`` with the validation files as gate data (AUC
+    on the card, GATE_TOLERANCE): exit 3. ``delta``: the delta candidate
+    (``best/`` with DELTA_USERS seeded served users' per-user records
+    scaled by DELTA_SCALE, through ``model_io``'s reader and the model
+    schema), published with ``--delta`` once the refused candidate is in
+    the registry, materialized, then gated with ``--candidate``: the gate
+    scores it and, when ``go`` appears in the work directory (the door's
+    traffic under v000001 is done), promotes it. Each writes
+    ``<kind>.json``; the delta worker also ``users.json`` when its
+    candidate is built, ``waiting`` when its gate is ready to promote, and
+    the gate's ``score_game_model`` outputs (candidate, then live) to
+    ``gate_scores.npz``."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from photon_ml_tpu_torch.cli import model_publish_driver
+    from photon_ml_tpu_torch.game import scoring
+    from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+    from photon_ml_tpu_torch.io.model_io import (
+        load_model_metadata, read_random_effect_records,
+    )
+    from photon_ml_tpu_torch.io.schemas import BAYESIAN_LINEAR_MODEL_SCHEMA
+    from photon_ml_tpu_torch.registry import ModelRegistry, materialize
+
+    paths = registry_paths(root)
+    work, best = paths["work"], paths["best"]
+    registry = ModelRegistry(paths["registry"])
+    out = {}
+
+    def publish(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = model_publish_driver.main(
+                ["--registry", paths["registry"], *argv])
+        lines = [json.loads(line) for line in buf.getvalue().splitlines()
+                 if line.startswith("{")]
+        return {"rc": rc, "lines": lines,
+                "seconds": time.perf_counter() - t0,
+                "latest": registry.read_latest()}
+
+    def wait_for(what, cond):
+        deadline = time.monotonic() + REGISTRY_WAIT_S
+        while not cond():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"phase 21's {kind} worker: no {what}")
+            time.sleep(0.05)
+
+    gate = ["--gate-data", paths["val"], "--evaluators", "auc",
+            "--tolerance", str(GATE_TOLERANCE), "--device", REGISTRY_DEVICE]
+    t0 = time.perf_counter()
+    if kind == "refused":
+        fixed = next(c["name"] for c in
+                     load_model_metadata(best)["coordinates"]
+                     if c["type"] == "fixed")
+        negated = os.path.join(work, "negated")
+        shutil.copytree(best, negated)
+        fe = os.path.join(negated, "fixed-effect", fixed,
+                          "coefficients.avro")
+        records, _ = read_avro_file(fe)
+        for rec in records:
+            for coef in rec["means"]:
+                coef["value"] = -coef["value"]
+        write_avro_file(fe, records, BAYESIAN_LINEAR_MODEL_SCHEMA)
+        out["build_s"] = time.perf_counter() - t0
+        out["publish"] = publish("--model-dir", negated, *gate)
+    else:
+        records = read_random_effect_records(best, "per_user")
+        _, users, _, _ = game_arrays(GAME_ROWS + GAME_VAL_ROWS, SEED)
+        served = {str(u)
+                  for u in users[GAME_ROWS:GAME_ROWS + REGISTRY_ROWS]}
+        known = sorted(str(r["modelId"]) for r in records
+                       if str(r["modelId"]) in served)
+        chosen = set(np.random.default_rng(SEED).choice(
+            known, DELTA_USERS, replace=False).tolist())
+        for rec in records:
+            if str(rec["modelId"]) in chosen:
+                for coef in rec["means"]:
+                    coef["value"] *= DELTA_SCALE
+        delta = os.path.join(work, "delta")
+        shutil.copytree(best, delta)
+        write_avro_file(os.path.join(delta, "random-effect", "per_user",
+                                     "coefficients.avro"), records,
+                        BAYESIAN_LINEAR_MODEL_SCHEMA)
+        del records
+        with open(os.path.join(work, "users.json"), "w") as f:
+            json.dump(sorted(chosen), f)
+        out["build_s"] = time.perf_counter() - t0
+        # the refused candidate takes v000002, this one v000003
+        wait_for("refused candidate",
+                 lambda: len(registry.list_versions()) >= 2)
+        out["publish"] = publish("--model-dir", delta, "--delta")
+        candidate = next(line["published"]
+                         for line in out["publish"]["lines"]
+                         if "published" in line)
+        t0 = time.perf_counter()
+        materialize(registry, candidate)
+        out["materialize_s"] = time.perf_counter() - t0
+
+        scored = []
+        real_score = scoring.score_game_model
+        real_set = ModelRegistry.set_latest
+
+        def spy_score(*a, **kw):
+            scores = real_score(*a, **kw)
+            scored.append(scores.detach().cpu().numpy())
+            return scores
+
+        def held_set(self, version):
+            # the gate has decided: promote once the door is done
+            with open(os.path.join(work, "waiting"), "w"):
+                pass
+            wait_for("go", lambda: os.path.exists(os.path.join(work, "go")))
+            real_set(self, version)
+            out["promoted_at"] = time.time()
+
+        scoring.score_game_model, ModelRegistry.set_latest = (spy_score,
+                                                              held_set)
+        try:
+            out["gate"] = publish("--candidate", candidate, *gate)
+        finally:
+            scoring.score_game_model, ModelRegistry.set_latest = (
+                real_score, real_set)
+        out["version"] = candidate
+        np.savez(os.path.join(work, "gate_scores.npz"),
+                 candidate=scored[0], live=scored[1])
+    with open(os.path.join(work, f"{kind}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _fd_series(base):
+    """``GET /fd/metrics`` as {replica address: {series: value}} (the
+    door's own ``photon_fd_*`` series under the key None)."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}/fd/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        m = re.search(r'replica="([^"]+)"', key)
+        name = re.sub(r'replica="[^"]+"', "", key).replace(
+            "{,", "{").replace(",}", "}").replace("{}", "")
+        out.setdefault(m.group(1) if m else None, {})[name] = float(value)
+    return out
+
+
+def _get_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _window(base, bodies, n):
+    """The requests from SERVE_CLIENTS threads: (scores, per_user parts,
+    latencies in s, seconds, errors)."""
+    import queue
+    import threading
+
+    work: "queue.Queue" = queue.Queue()
+    for item in bodies:
+        work.put(item)
+    got, user_part = np.full(n, np.nan), np.full(n, np.nan)
+    latencies, errors = [], []
+
+    def client():
+        while True:
+            try:
+                lo, size, data = work.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                status, out, sec = _post(base, "/score", data)
+            except Exception as e:  # reported by the caller
+                errors.append(repr(e))
+                continue
+            if status != 200 or len(out["scores"]) != size:
+                errors.append(f"{status} {str(out)[:200]}")
+                continue
+            got[lo:lo + size] = out["scores"]
+            user_part[lo:lo + size] = out["scoreComponents"]["per_user"]
+            latencies.append(sec)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT_S)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        errors.append("a client thread did not finish")
+    return got, user_part, np.array(latencies), seconds, errors
+
+
+def _probes(base, bodies):
+    """Requests one at a time: [(scores, per_user parts)]."""
+    out = []
+    for _lo, _size, data in bodies:
+        status, body, _ = _post(base, "/score", data)
+        if status != 200:
+            raise RuntimeError(f"probe: {status} {body}")
+        out.append((body["scores"], body["scoreComponents"]["per_user"]))
+    return out
+
+
+def start_registry_workers(best):
+    """Phase 21's two lifecycle workers (``registry_worker``), started
+    before phase 20 so that their model reads and writes overlap it.
+    Returns {kind: process}."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(best))
+    work = registry_paths(root)["work"]
+    os.makedirs(work, exist_ok=True)
+    workers = {}
+    for kind in ("refused", "delta"):
+        with open(os.path.join(work, f"{kind}.out"), "wb") as f:
+            workers[kind] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--registry-worker", kind, root], stdout=f,
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+    return workers
+
+
+def phase_serving(best, scores, dev, smi, peaks):
+    """Phases 19 (b)-(c), 20 and 21 inside phase 13's directory, phase
+    21's workers started after 19 (c) and stopped in any case. Returns
+    their results."""
+    paged = phase_paged(best, dev, smi, peaks)
+    workers = start_registry_workers(best)
+    try:
+        return (paged, phase_serve(best, scores, dev, smi, peaks),
+                phase_registry(best, scores, dev, smi, workers))
+    finally:
+        for p in workers.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+
+
+def phase_registry(best, ref, dev, smi, workers):
+    """Phase 21, inside phase 13's directory, after phase 20, with the
+    ``workers`` of ``start_registry_workers`` (the docstring at the top of
+    the file lists its steps and gates). Returns the phase's numbers."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    from photon_ml_tpu_torch.registry import ModelRegistry
+    from photon_ml_tpu_torch.serve.session import bucket_ladder
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(best))
+    paths = registry_paths(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    idx_raw, users, items, _ = game_arrays(GAME_ROWS + GAME_VAL_ROWS, SEED)
+    n = REGISTRY_ROWS
+    rows = slice(GAME_ROWS, GAME_ROWS + n)
+    idx_np, users, items = idx_raw[rows], users[rows], items[rows]
+    ref = ref[:n]
+    ladder = bucket_ladder(SERVE_MAX_BATCH)
+    log_dir = os.path.join(root, "registry_serve_log")
+    cmd = SERVE_DRIVER + [
+        "--registry", paths["registry"], "--replicas",
+        str(REGISTRY_REPLICAS), "--server", "async", "--hedge",
+        "--watch-interval-s", "1", "--port", "0", "--device", str(dev),
+        "--max-batch", str(SERVE_MAX_BATCH),
+        "--re-dense-dim-max", str(GAME_DIM + 1),
+        "--re-pages", str(SERVE_PAGES), "--re-page-rows",
+        str(SERVE_PAGE_ROWS), "--coeff-cache-entries", str(SERVE_LRU),
+        "--log-dir", log_dir]
+    t0 = time.perf_counter()
+    # a session of its own: a failed phase stops the replicas with it
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=here,
+                            start_new_session=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    output = []
+
+    def pump():
+        for line in proc.stdout:
+            output.append(line)
+            lines.put(line)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        m, deadline = None, time.monotonic() + SERVE_WAIT_S
+        while m is None:
+            try:
+                line = lines.get(timeout=0.5)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    raise RuntimeError(
+                        f"the serving driver exited {proc.returncode}:\n"
+                        f"{''.join(output)}") from None
+                if time.monotonic() > deadline:
+                    raise RuntimeError("the front door did not get ready "
+                                       f"in {SERVE_WAIT_S} s") from None
+                continue
+            m = re.search(r"^front door on http://[\d.]+:(\d+) -> \d+ "
+                          r"replicas on \[([\d, ]+)\]", line)
+        t_ready = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{int(m.group(1))}"
+        replicas = [f"127.0.0.1:{p.strip()}" for p in m.group(2).split(",")]
+        miss, hit = ("photon_serve_compile_cache_misses_total",
+                     "photon_serve_compile_cache_hits_total")
+        launches_key = ('photon_serve_kernel_launches_total'
+                        '{kernel="paged_gather_score"}')
+        off_rungs = ("photon_serve_fixed_eager_batches_total",
+                     "photon_serve_fused_fallback_batches_total",
+                     "photon_serve_overflow_rows_total")
+        warm = _fd_series(base)
+        print(f"phase 21 (b): serving_driver --registry --replicas "
+              f"{REGISTRY_REPLICAS} --server async --hedge: the front door "
+              f"and {len(replicas)} replicas ready in {t_ready:.2f} s "
+              f"(captures per replica "
+              f"{[int(warm[r][miss]) for r in replicas]}, one per rung of "
+              f"{ladder}); on {smi}")
+        if len(replicas) != REGISTRY_REPLICAS or any(
+                warm[r][miss] != len(ladder) for r in replicas):
+            raise RuntimeError(f"captures after warmup: {warm}")
+
+        # prefetch on both replicas at once: their store passes overlap
+        ids = sorted(set(users.astype(str).tolist())
+                     | set(items.astype(str).tolist()))
+        prefetched = {}
+
+        def prefetch(address):
+            prefetched[address] = _post(f"http://{address}",
+                                        "/admin/membership", {
+                                            "epoch": 1, "numShards": 1,
+                                            "shardIndex": 0,
+                                            "prefetchEntityIds": ids},
+                                        timeout=SERVE_WAIT_S)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=prefetch, args=(r,))
+                   for r in replicas]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_WAIT_S)
+        t_pref = time.perf_counter() - t0
+        print(f"  /admin/membership prefetch of {len(ids)} ids on each "
+              f"replica at once: {t_pref:.2f} s; "
+              + ", ".join(f"{r} {body.get('prefetched')} entities in "
+                          f"{sec:.2f} s" for r, (_s, body, sec)
+                          in sorted(prefetched.items())))
+        if len(prefetched) != len(replicas) or any(
+                s != 200 or not b.get("prefetched")
+                for s, b, _ in prefetched.values()):
+            raise RuntimeError(f"membership prefetch: {prefetched}")
+
+        # the scoring window under v1, then the probes one at a time
+        bodies = serve_requests(idx_np, users, items, SEED)
+        before = _fd_series(base)
+        got, part1, lat, seconds, errors = _window(base, bodies, n)
+        probes1 = _probes(base, bodies[:REGISTRY_PROBES])
+        diff = float(np.abs(got - ref).max())
+        rows_s = n / seconds
+        print(f"  v000001: {n} rows in {len(bodies)} requests from "
+              f"{SERVE_CLIENTS} clients through the door: {seconds:.3f} s, "
+              f"{rows_s:.1f} rows/s; latency p50 "
+              f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+              f"{np.percentile(lat, 99) * 1e3:.3f} ms; max |served - "
+              f"score_game_model| {diff:.3e} (tol {TOL_SERVE}); "
+              f"{len(errors)} errors; on {smi}")
+        if errors or not (np.isfinite(got).all() and diff <= TOL_SERVE):
+            raise RuntimeError(f"v000001 through the door: {errors[:3]}, "
+                               f"max diff {diff}")
+
+        # the refused candidate's worker ends; the delta's gate waits to
+        # promote until the door's traffic under v000001 is done
+        work = paths["work"]
+        t_wait = time.perf_counter()
+        while not (workers["refused"].poll() is not None
+                   and os.path.exists(os.path.join(work, "waiting"))):
+            if (workers["delta"].poll() is not None
+                    or time.perf_counter() - t_wait > REGISTRY_WAIT_S):
+                raise RuntimeError(
+                    "phase 21's delta worker stopped before its gate "
+                    f"promoted ({workers['delta'].poll()})")
+            time.sleep(0.1)
+        t_waited = time.perf_counter() - t_wait
+        with open(os.path.join(work, "refused.json")) as f:
+            refused = json.load(f)
+        latest_before = ModelRegistry(paths["registry"]).read_latest()
+        with open(os.path.join(work, "go"), "w"):
+            pass
+        if workers["delta"].wait(timeout=REGISTRY_WAIT_S) != 0:
+            raise RuntimeError("phase 21's delta worker failed")
+        with open(os.path.join(work, "delta.json")) as f:
+            res = json.load(f)
+        with open(os.path.join(work, "users.json")) as f:
+            chosen = json.load(f)
+        published, gated, v3 = res["publish"], res["gate"], res["version"]
+        gate_scores = np.load(os.path.join(work, "gate_scores.npz"))
+        live_diff = float(np.abs(gate_scores["live"][:n] - ref).max())
+
+        def verdict(r):
+            return next((line for line in r["lines"]
+                         if "gate_passed" in line), {})
+
+        print(f"  workers: the negated candidate built in "
+              f"{refused['build_s']:.2f} s, published and gated in "
+              f"{refused['publish']['seconds']:.2f} s: exit "
+              f"{refused['publish']['rc']}, auc "
+              f"{verdict(refused['publish']).get('candidate_metrics')} "
+              f"against {verdict(refused['publish']).get('live_metrics')}, "
+              f"LATEST {latest_before}; the delta candidate built in "
+              f"{res['build_s']:.2f} s, published in "
+              f"{published['seconds']:.2f} s as {v3} "
+              f"({published['lines'][0].get('delta_summary')}), "
+              f"materialized in {res['materialize_s']:.2f} s, gated in "
+              f"{gated['seconds']:.2f} s (with the wait to promote): exit "
+              f"{gated['rc']}, auc {verdict(gated).get('candidate_metrics')}"
+              f" against {verdict(gated).get('live_metrics')}, LATEST "
+              f"{gated['latest']}; the door waited {t_waited:.2f} s for "
+              f"them; the gate's float64 v000001 scores against the "
+              f"scoring driver's: {live_diff:.3e}")
+        if not (refused["publish"]["rc"] == 3
+                and refused["publish"]["latest"] == "v000001"
+                and latest_before == "v000001" and published["rc"] == 0
+                and published["latest"] == "v000001" and gated["rc"] == 0
+                and gated["latest"] == v3 and live_diff <= TOL_SERVE):
+            raise RuntimeError(f"phase 21's gates: {refused} {res}")
+        summary = published["lines"][0]["delta_summary"]
+        if (summary["changed_fixed"] or summary["changed_entities"]
+                != {"per_user": DELTA_USERS, "per_item": 0}):
+            raise RuntimeError(f"the delta holds more than the scaled "
+                               f"users: {summary}")
+
+        # every replica's watcher swaps to the promoted delta
+        deadline = res["promoted_at"] + SWAP_LIMIT_S
+        seen = {}
+        while len(seen) < len(replicas):
+            for r in replicas:
+                if r not in seen and _get_json(
+                        f"http://{r}/healthz")["active_version"] == v3:
+                    seen[r] = time.time() - res["promoted_at"]
+            if time.time() > deadline:
+                raise RuntimeError(f"replicas on {v3} within "
+                                   f"{SWAP_LIMIT_S} s: {seen}")
+            time.sleep(0.1)
+        print(f"  every replica's watcher swapped to {v3}: "
+              + ", ".join(f"{r} {s:.2f} s" for r, s in sorted(seen.items()))
+              + " after the promotion")
+
+        want = gate_scores["candidate"][:n]
+        got2, part2, lat2, seconds2, errors2 = _window(base, bodies, n)
+        probes2 = _probes(base, bodies[:REGISTRY_PROBES])
+        after = _fd_series(base)
+        diff2 = float(np.abs(got2 - want).max())
+        moved = np.isin(users.astype(str), chosen)
+        print(f"  {v3}: {n} rows: {seconds2:.3f} s, {n / seconds2:.1f} "
+              f"rows/s; latency p50 {np.percentile(lat2, 50) * 1e3:.3f} ms, "
+              f"p99 {np.percentile(lat2, 99) * 1e3:.3f} ms; max |served - "
+              f"score_game_model({v3} materialized)| {diff2:.3e} (tol "
+              f"{TOL_SERVE}); {int(moved.sum())} rows of the "
+              f"{DELTA_USERS} scaled users")
+        if errors2 or not (np.isfinite(got2).all() and diff2 <= TOL_SERVE):
+            raise RuntimeError(f"{v3} through the door: {errors2[:3]}, "
+                               f"max diff {diff2}")
+        # the probes: a scaled user's part exactly halved, any other
+        # row's part as before, bit for bit
+        flat = lambda probes, k: np.concatenate([np.asarray(p[k])
+                                                 for p in probes])
+        pm = np.concatenate([moved[lo:lo + size]
+                             for lo, size, _ in bodies[:REGISTRY_PROBES]])
+        u1, u2 = flat(probes1, 1), flat(probes2, 1)
+        halved = bool(np.array_equal(u2[pm], DELTA_SCALE * u1[pm]))
+        kept = bool(np.array_equal(u2[~pm], u1[~pm]))
+        changed = int((flat(probes2, 0)[pm] != flat(probes1, 0)[pm]).sum())
+        print(f"  {REGISTRY_PROBES} probe requests one at a time "
+              f"({pm.size} rows, {int(pm.sum())} of scaled users): their "
+              f"per_user parts halved exactly {halved}, every other part "
+              f"bit-equal {kept}; {changed} scores changed")
+        if not (pm.any() and halved and kept and changed):
+            raise RuntimeError("the delta's probes")
+
+        # captures, off-rung batches and launches, per replica
+        per = {}
+        for r in replicas:
+            replays = after[r][hit] - before[r][hit]
+            launches = after[r][launches_key] - before[r][launches_key]
+            per[r] = {"captures": int(after[r][miss]),
+                      "replays": int(replays), "launches": int(launches),
+                      "batches": int(after[r]["photon_serve_batches_total"]
+                                     - before[r]["photon_serve_batches_total"]),
+                      "off_rungs": [int(after[r][k]) for k in off_rungs],
+                      "swaps": int(after[r]["photon_serve_swaps_total"])}
+        print("  per replica: " + "; ".join(
+            f"{r}: captures {p['captures']}, {p['batches']} batches, "
+            f"{p['replays']} replays, {p['launches']} paged_gather_score "
+            f"launches, off the rungs {p['off_rungs']}, swaps {p['swaps']}"
+            for r, p in sorted(per.items())))
+        if any(p["captures"] != len(ladder) or any(p["off_rungs"])
+               or p["launches"] != 2 * p["replays"] or p["replays"] < 1
+               for p in per.values()):
+            raise RuntimeError(f"phase 21 per replica: {per}")
+
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_WAIT_S)
+        if rc != 0:
+            raise RuntimeError(f"the serving driver exited {rc} after "
+                               f"SIGTERM:\n{''.join(output[-20:])}")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass  # the driver and its replicas have all exited
+        proc.wait(timeout=60)
+        reader.join(60)
+    with open(os.path.join(log_dir, "photon.log.jsonl")) as f:
+        done = [json.loads(line) for line in f][-1]
+    door = done.get("front_door", {})
+    print(f"  SIGTERM: exit 0, replicas exited {done.get('replica_exit_codes')}"
+          f"; hedges fired {door.get('hedged')}, won {door.get('hedgeWins')}"
+          f"; proxied {door.get('proxied')}, retried {door.get('retried')}; "
+          f"the parent created a CUDA context: "
+          f"{done.get('cuda_initialized')}; phase 21 "
+          f"{time.perf_counter() - t_phase:.1f} s; on {smi}")
+    if (done["event"] != "driver_done"
+            or done.get("replica_exit_codes") != [0] * REGISTRY_REPLICAS
+            or done.get("cuda_initialized")):
+        raise RuntimeError(f"the driver's log ends with {done}")
+    return {"launches": sum(p["launches"] for p in per.values()),
+            "per_replica": per, "ready_s": t_ready, "prefetch_s": t_pref,
+            "rows_per_s": [rows_s, n / seconds2],
+            "latency_p50_ms": [float(np.percentile(lat, 50)) * 1e3,
+                               float(np.percentile(lat2, 50)) * 1e3],
+            "latency_p99_ms": [float(np.percentile(lat, 99)) * 1e3,
+                               float(np.percentile(lat2, 99)) * 1e3],
+            "swap_s": seen, "refused_s": refused["publish"]["seconds"],
+            "delta_build_s": res["build_s"],
+            "delta_publish_s": published["seconds"],
+            "materialize_s": res["materialize_s"],
+            "delta_gate_s": gated["seconds"], "waited_for_workers_s": t_waited,
+            "hedged": door.get("hedged"), "hedge_wins": door.get("hedgeWins"),
+            "max_abs_diff": [diff, diff2],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4488,12 +5143,14 @@ def main() -> int:
                   stream_timing["max_abs_err"])
     phase_re_solve(dev, gen, smi)
     launches_by_path["game_cd"], game_ctx = phase_game(dev, smi)
-    launches_by_path["game_driver"], (paged_kernel, serve) = \
-        phase_game_driver(dev, smi, then=lambda best, scores: (
-            phase_paged(best, dev, smi, peaks),
-            phase_serve(best, scores, dev, smi, peaks)))
+    launches_by_path["game_driver"], (paged_kernel, serve, registry) = \
+        phase_game_driver(dev, smi, then=lambda best, scores: phase_serving(
+            best, scores, dev, smi, peaks))
     paged_kernel["launches_by_path"]["serving_driver"] = serve["launches"]
-    paged_kernel["launches"] += serve["launches"]
+    paged_kernel["launches_by_path"]["registry_front_door_replicas"] = \
+        registry["launches"]
+    paged_kernel["launches"] += serve["launches"] + registry["launches"]
+    paged_kernel["registry_front_door"] = registry
     paged_kernel["shapes"]["random_table_at_float32_b64_k64"] = serve.pop(
         "at_b64_k64")
     paged_kernel["serving_driver"] = serve
@@ -4598,6 +5255,8 @@ if __name__ == "__main__":
         sys.exit(mp_rank(int(sys.argv[2]), sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == "--recovery-rank":
         sys.exit(recovery_rank(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--registry-worker":
+        sys.exit(registry_worker(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 2 and sys.argv[1] == "--sticky-error":
         sys.exit(sticky_error_probe())
     sys.exit(main())

@@ -27,18 +27,6 @@ def positive_int(value: str) -> int:
     return n
 
 
-def check_deferred(args, parser: argparse.ArgumentParser,
-                   deferred: dict) -> None:
-    """Exit naming the ROADMAP item when a flag of ``deferred`` (dest ->
-    the Queue 1 item that ports its code path) is set to anything but its
-    default."""
-    for dest, item in deferred.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to the PyTorch driver "
-                             f"yet: ROADMAP Queue 1 item {item}")
-
-
 def tol_schedule(value: str):
     try:
         return parse_tolerance_schedule(value)

@@ -49,9 +49,9 @@ inputs and consumed only when a run completes.
 ``--trace-dir`` (or ``PHOTON_TRACE``) writes the run's trace spans, one
 ``trace-rankN.json`` per process, ``--trace-sample`` the fraction of
 traces kept; ``--profile-dir`` a ``torch.profiler`` trace of training.
-``--publish-to`` selects a part of the port not written yet (the
-registry): it is accepted by the parser and raises, naming the ROADMAP
-item that ports it.
+``--publish-to`` publishes the best model into a model registry
+(``registry/``) after saving it; the first publish into an empty registry
+also sets ``LATEST``.
 
 Usage:
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
@@ -79,7 +79,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli._common import (
-    add_trace_args, check_deferred, json_arg, load_input_columns, log_path,
+    add_trace_args, json_arg, load_input_columns, log_path,
     positive_int, runtime_info, start_processes, stop_processes,
     tol_schedule, traced, write_feature_summary,
 )
@@ -111,14 +111,6 @@ from photon_ml_tpu_torch.types import SparseFeatures, make_batch, resolve_device
 from photon_ml_tpu_torch.utils import (
     PhotonLogger, Timed, is_device_loss, profile_trace, resolve_dtype,
 )
-
-# flags of the JAX driver whose code paths are not ported yet, by the
-# ROADMAP Queue 1 item that ports them; each raises when set to anything
-# but its default
-_DEFERRED = {
-    "publish_to": "19 (serving and lifecycle)",
-}
-
 
 def _finite_nonneg_float(value: str) -> float:
     x = float(value)
@@ -264,8 +256,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(with --max-rank-failures > 0): a failure rolls "
                         "back at most N sweeps")
     add_trace_args(p)
-    # accepted for parity with the JAX driver; each raises (_DEFERRED)
-    p.add_argument("--publish-to", default=None)
+    p.add_argument("--publish-to", default=None,
+                   help="model-registry root (registry/): publish the "
+                        "best model there as an immutable version after "
+                        "saving. The FIRST publish into an empty "
+                        "registry also sets LATEST (bootstrap); later "
+                        "versions are promoted through the gate "
+                        "(python -m photon_ml_tpu_torch.cli"
+                        ".model_publish_driver --gate-data ...)")
     return p
 
 
@@ -373,9 +371,7 @@ def _out_of_core_sources(args, index_maps, ooc_shards, chunk_rows, columns,
 
 
 def main(argv: Sequence[str] | None = None) -> int:
-    parser = build_arg_parser()
-    args = parser.parse_args(argv)
-    check_deferred(args, parser, _DEFERRED)
+    args = build_arg_parser().parse_args(argv)
     with traced(args):
         return _run(args)
 
@@ -681,6 +677,19 @@ def _train(args, dev: torch.device, distributed: bool) -> int:
                     r.model,
                     os.path.join(args.output_dir, "all", f"config-{gi}"),
                     index_maps)
+    if args.publish_to and lead:
+        from photon_ml_tpu_torch.registry import ModelRegistry
+
+        registry = ModelRegistry(args.publish_to)
+        best_metrics = ({} if best.evaluation is None
+                        else dict(best.evaluation.metrics))
+        bootstrap = registry.read_latest(retries=1) is None
+        version = registry.publish(
+            os.path.join(args.output_dir, "best"),
+            metrics=best_metrics, set_latest=bootstrap)
+        logger.log("model_published", registry=args.publish_to,
+                   version=version, set_latest=bootstrap,
+                   metrics=best_metrics)
     # outputs are published: ANY completed run consumes the marker, so a
     # later --auto-resume cannot warm-start from an older checkpoint
     resume.consume()

@@ -17,6 +17,8 @@ raw zlib per the spec).
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -163,9 +165,10 @@ def _read_long(buf: BinaryIO) -> int:
 
 
 # -- datum encode/decode ---------------------------------------------------
-# Each schema compiles once into nested closures (``_encoder``,
-# ``_decoder``), so a record's fields are not dispatched on their schema
-# type again for every datum; the bytes are those of the Avro spec either
+# Each schema compiles once (``_encoder``, ``_decoder``), so a record's
+# fields are not dispatched on their schema type again for every datum:
+# records and arrays into generated straight-line functions (below), the
+# other types into closures; the bytes are those of the Avro spec either
 # way. Recursive named types compile through a forward reference.
 def _encoder(schema, _memo=None):
     """``enc(datum) -> bytes`` for ``schema``."""
@@ -210,34 +213,8 @@ def _encoder(schema, _memo=None):
         return enc_fixed
     cell = [None]
     memo[key] = cell
-    if t == "record":
-        fields = [(f["name"], "default" in f, f.get("default"),
-                   _encoder(f["type"], memo)) for f in schema["fields"]]
-
-        def enc(d):
-            parts = []
-            for name, has_default, default, fenc in fields:
-                if isinstance(d, dict):
-                    if name in d:
-                        value = d[name]
-                    elif has_default:
-                        value = default
-                    else:
-                        raise ValueError(f"record field '{name}' missing and "
-                                         "no default")
-                else:
-                    value = getattr(d, name)
-                parts.append(fenc(value))
-            return b"".join(parts)
-    elif t == "array":
-        ienc = _encoder(schema["items"], memo)
-
-        def enc(d):
-            items = list(d)
-            if not items:
-                return b"\x00"
-            return (_long_bytes(len(items)) + b"".join(map(ienc, items))
-                    + b"\x00")
+    if t in ("record", "array"):
+        enc = _compiled_encoder(schema, t, memo)
     elif t == "map":
         venc = _encoder(schema["values"], memo)
         kenc = _encoder("string", memo)
@@ -259,6 +236,93 @@ def _encoder(schema, _memo=None):
         raise ValueError(f"unsupported schema type {t!r}")
     cell[0] = enc
     return enc
+
+
+# -- straight-line encoders ------------------------------------------------
+# The mirror of the straight-line decoders below: a record (given as a
+# dict) or an array writes its simple fields inline, and calls the
+# encoder of any other field.
+def _emit_put(lines, ind, schema, var, subs, memo):
+    """Code that appends the encoding of ``var`` (of ``schema``)."""
+    t = _simple_type(schema) if _schema_type(schema) != "union" else None
+    if t == "null":
+        return
+    if t == "boolean":
+        lines.append(f"{ind}add(b'\\x01' if {var} else b'\\x00')")
+    elif t in ("int", "long"):
+        lines.append(f"{ind}add(_lb(int({var})))")
+    elif t in ("float", "double"):
+        lines.append(f"{ind}add(_p{t[0]}(float({var})))")
+    elif t in ("string", "bytes"):
+        raw = (f"str({var}).encode('utf-8')" if t == "string"
+               else f"bytes({var})")
+        lines += [f"{ind}r = {raw}", f"{ind}add(_lb(len(r)))",
+                  f"{ind}add(r)"]
+    else:
+        subs.append(_encoder(schema, memo))
+        lines.append(f"{ind}add(_s{len(subs) - 1}({var}))")
+
+
+def _emit_put_record(lines, ind, schema, var, subs, memo):
+    for f in schema["fields"]:
+        name = f["name"]
+        if "default" in f:
+            subs.append(f["default"])
+            missing = f"_s{len(subs) - 1}"
+        else:
+            subs.append(name)
+            missing = f"_missing(_s{len(subs) - 1})"
+        lines.append(f"{ind}v = {var}[{name!r}] if {name!r} in {var} "
+                     f"else {missing}")
+        _emit_put(lines, ind, f["type"], "v", subs, memo)
+
+
+def _missing(name):
+    raise ValueError(f"record field '{name}' missing and no default")
+
+
+def _compiled_encoder(schema, t, memo):
+    subs: List = []
+    lines = ["def enc(d):"]
+    if t == "record":
+        subs.append(None)  # _s0: the generic encoder, for non-dict data
+        lines += ["    if not isinstance(d, dict):",
+                  "        return _s0(d)",
+                  "    parts = []", "    add = parts.append"]
+        _emit_put_record(lines, "    ", schema, "d", subs, memo)
+        lines.append("    return b''.join(parts)")
+    else:
+        items = schema["items"]
+        lines += ["    items = list(d)", "    if not items:",
+                  "        return b'\\x00'",
+                  "    parts = [_lb(len(items))]", "    add = parts.append",
+                  "    for item in items:"]
+        if (_schema_type(items) == "record"
+                and all(_is_simple(f["type"]) for f in items["fields"])):
+            subs.append(_encoder(items, memo))
+            lines += ["        if not isinstance(item, dict):",
+                      f"            add(_s{len(subs) - 1}(item))",
+                      "            continue"]
+            _emit_put_record(lines, "        ", items, "item", subs, memo)
+        else:
+            _emit_put(lines, "        ", items, "item", subs, memo)
+        lines += ["    add(b'\\x00')", "    return b''.join(parts)"]
+    scope = {"_lb": _long_bytes, "_missing": _missing,
+             "_pf": struct.Struct("<f").pack,
+             "_pd": struct.Struct("<d").pack}
+    scope.update((f"_s{i}", sub) for i, sub in enumerate(subs))
+    if t == "record":
+        scope["_s0"] = _generic_record_encoder(schema, memo)
+    exec("\n".join(lines), scope)
+    return scope["enc"]
+
+
+def _generic_record_encoder(schema, memo):
+    """A record given as an object: its fields by attribute."""
+    fields = [(f["name"], _encoder(f["type"], memo))
+              for f in schema["fields"]]
+    return lambda d: b"".join(fenc(getattr(d, name))
+                              for name, fenc in fields)
 
 
 def write_datum(out: BinaryIO, datum, schema) -> None:
@@ -382,21 +446,14 @@ def _decoder(schema, _memo=None):
         return lambda buf, pos: _take(buf, pos, size)
     cell = [None]
     memo[key] = cell
-    if t == "record":
-        fields = [(f["name"], _decoder(f["type"], memo))
-                  for f in schema["fields"]]
-
-        def dec(buf, pos):
-            out = {}
-            for name, fdec in fields:
-                out[name], pos = fdec(buf, pos)
-            return out, pos
-    elif t in ("array", "map"):
-        vdec = _decoder(schema["items" if t == "array" else "values"], memo)
+    if t in ("record", "array"):
+        dec = _compiled_decoder(schema, t, memo)
+    elif t == "map":
+        vdec = _decoder(schema["values"], memo)
         kdec = _decoder("string", memo)
 
         def dec(buf, pos):
-            out = [] if t == "array" else {}
+            out = {}
             while True:
                 count, pos = _read_long_at(buf, pos)
                 if count == 0:
@@ -405,12 +462,8 @@ def _decoder(schema, _memo=None):
                     count = -count
                     _, pos = _read_long_at(buf, pos)
                 for _ in range(count):
-                    if t == "array":
-                        v, pos = vdec(buf, pos)
-                        out.append(v)
-                    else:
-                        k, pos = kdec(buf, pos)
-                        out[k], pos = vdec(buf, pos)
+                    k, pos = kdec(buf, pos)
+                    out[k], pos = vdec(buf, pos)
     elif t == "union":
         branches = [_decoder(b, memo) for b in schema]
 
@@ -421,6 +474,123 @@ def _decoder(schema, _memo=None):
         raise ValueError(f"unsupported schema type {t!r}")
     cell[0] = dec
     return dec
+
+
+# -- straight-line decoders ------------------------------------------------
+# A record or array decodes through one generated function: every field
+# of a simple type (null, boolean, int, long, float, double, string,
+# bytes, or a union of those) is read inline, with a one-byte varint read
+# without a call; other fields call their own decoder. Truncated input
+# raises EOFError.
+_SIMPLE = {"null", "boolean", "int", "long", "float", "double", "string",
+           "bytes"}
+
+
+def _simple_type(schema):
+    """``schema``'s primitive type name when it is simple, else None."""
+    t = _schema_type(schema)
+    if isinstance(t, (dict, list)):
+        return _simple_type(t)
+    return t if t in _SIMPLE else None
+
+
+def _is_simple(schema) -> bool:
+    if _schema_type(schema) == "union":
+        return all(_simple_type(b) is not None for b in schema)
+    return _simple_type(schema) is not None
+
+
+def _emit_long(lines, ind, var):
+    lines += [f"{ind}b = buf[pos]",
+              f"{ind}if b < 0x80:",
+              f"{ind}    {var} = (b >> 1) ^ -(b & 1)",
+              f"{ind}    pos += 1",
+              f"{ind}else:",
+              f"{ind}    {var}, pos = _rl(buf, pos)"]
+
+
+def _emit_simple(lines, ind, t, var):
+    """Code that reads one datum of simple type ``t`` into ``var``."""
+    if t == "null":
+        lines.append(f"{ind}{var} = None")
+    elif t == "boolean":
+        lines += [f"{ind}if pos >= nbuf:",
+                  f"{ind}    raise EOFError('truncated datum')",
+                  f"{ind}{var} = buf[pos] == 1",
+                  f"{ind}pos += 1"]
+    elif t in ("int", "long"):
+        _emit_long(lines, ind, var)
+    elif t in ("float", "double"):
+        size = 4 if t == "float" else 8
+        lines += [f"{ind}if pos + {size} > nbuf:",
+                  f"{ind}    raise EOFError('truncated datum')",
+                  f"{ind}{var} = _u{t[0]}(buf, pos)[0]",
+                  f"{ind}pos += {size}"]
+    else:  # string, bytes
+        _emit_long(lines, ind, "n")
+        lines += [f"{ind}e = pos + n",
+                  f"{ind}if n < 0 or e > nbuf:",
+                  f"{ind}    raise EOFError('truncated datum')",
+                  f"{ind}{var} = buf[pos:e]" + (".decode('utf-8')"
+                                                if t == "string" else ""),
+                  f"{ind}pos = e"]
+
+
+def _emit_datum(lines, ind, schema, var, subs, memo):
+    """Code that reads one datum of ``schema`` into ``var``."""
+    if _schema_type(schema) == "union" and _is_simple(schema):
+        _emit_long(lines, ind, "u")
+        for i, branch in enumerate(schema):
+            lines.append(f"{ind}{'if' if i == 0 else 'elif'} u == {i}:")
+            _emit_simple(lines, ind + "    ", _simple_type(branch), var)
+        lines += [f"{ind}else:",
+                  f"{ind}    raise IndexError('union branch out of range')"]
+    elif _simple_type(schema) is not None:
+        _emit_simple(lines, ind, _simple_type(schema), var)
+    else:
+        subs.append(_decoder(schema, memo))
+        lines.append(f"{ind}{var}, pos = _s{len(subs) - 1}(buf, pos)")
+
+
+def _emit_record(lines, ind, schema, var, subs, memo):
+    names = []
+    for i, f in enumerate(schema["fields"]):
+        _emit_datum(lines, ind, f["type"], f"v{i}", subs, memo)
+        names.append(f"{f['name']!r}: v{i}")
+    lines.append(f"{ind}{var} = {{{', '.join(names)}}}")
+
+
+def _compiled_decoder(schema, t, memo):
+    subs: List = []
+    lines = ["def dec(buf, pos):", "    nbuf = len(buf)"]
+    body: List[str] = []
+    if t == "record":
+        _emit_record(body, "    ", schema, "out", subs, memo)
+        body.append("    return out, pos")
+    else:
+        items = schema["items"]
+        body += ["    out = []", "    add = out.append", "    while True:"]
+        _emit_long(body, "        ", "count")
+        body += ["        if count == 0:",
+                 "            return out, pos",
+                 "        if count < 0:  # block with byte-size prefix",
+                 "            count = -count",
+                 "            _, pos = _rl(buf, pos)",
+                 "        for _ in range(count):"]
+        if (_schema_type(items) == "record"
+                and all(_is_simple(f["type"]) for f in items["fields"])):
+            _emit_record(body, "            ", items, "item", subs, memo)
+        else:
+            _emit_datum(body, "            ", items, "item", subs, memo)
+        body.append("            add(item)")
+    lines += ["    try:"] + ["    " + line for line in body]
+    lines += ["    except IndexError:",
+              "        raise EOFError('truncated datum') from None"]
+    scope = {"_rl": _read_long_at, "_uf": struct.Struct("<f").unpack_from,
+             "_ud": struct.Struct("<d").unpack_from}
+    scope.update((f"_s{i}", sub) for i, sub in enumerate(subs))
+    exec("\n".join(lines), scope)
+    return scope["dec"]
 
 
 # -- object container files ------------------------------------------------
@@ -453,27 +623,57 @@ def write_avro_file(
         }
         write_datum(f, meta, _META_SCHEMA)
         f.write(sync)
-        block: List[bytes] = []
+        # a full block is compressed on a worker thread (zlib releases the
+        # interpreter lock) while the next one is encoded; blocks are
+        # written in order, so the file is the same bytes either way
+        pending: "collections.deque" = collections.deque()
+        pool = None
 
-        def flush():
-            if not block:
-                return
-            payload = b"".join(block)
-            if codec == "deflate":
-                comp = zlib.compressobj(9, zlib.DEFLATED, -15)
-                payload = comp.compress(payload) + comp.flush()
-            _write_long(f, len(block))
+        def emit(count, payload):
+            _write_long(f, count)
             _write_long(f, len(payload))
             f.write(payload)
             f.write(sync)
-            block.clear()
+
+        def flush(block, last):
+            nonlocal pool
+            if block and codec == "deflate" and (pool is not None
+                                                 or not last):
+                if pool is None:
+                    pool = concurrent.futures.ThreadPoolExecutor(
+                        _DEFLATE_THREADS)
+                pending.append((len(block),
+                                pool.submit(_deflate, b"".join(block))))
+            elif block:
+                payload = b"".join(block)
+                emit(len(block), _deflate(payload) if codec == "deflate"
+                     else payload)
+            while pending and (last or len(pending) > 2 * _DEFLATE_THREADS
+                               or pending[0][1].done()):
+                count, fut = pending.popleft()
+                emit(count, fut.result())
 
         enc = _encoder(schema)
-        for rec in records:
-            block.append(enc(rec))
-            if len(block) >= block_size:
-                flush()
-        flush()
+        block: List[bytes] = []
+        try:
+            for rec in records:
+                block.append(enc(rec))
+                if len(block) >= block_size:
+                    flush(block, last=False)
+                    block = []
+            flush(block, last=True)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+
+_DEFLATE_THREADS = max(1, min(8, os.cpu_count() or 1))
+
+
+def _deflate(payload: bytes) -> bytes:
+    """Raw deflate at level 9 (the spec's deflate codec)."""
+    comp = zlib.compressobj(9, zlib.DEFLATED, -15)
+    return comp.compress(payload) + comp.flush()
 
 
 def _read_header(f: BinaryIO, path: str):

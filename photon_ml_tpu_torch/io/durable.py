@@ -1,7 +1,6 @@
 """Durable atomic-rename commits: fsync the file AND its directory (a copy
 of ``photon_ml_tpu/io/durable.py``, with its ``durable.commit``
-fault-injection site, without ``durable_dir_rename``, which only the model
-registry calls, ROADMAP item 19).
+fault-injection site).
 
 Every commit point in the tree (resume markers, registry ``LATEST``,
 trace files, scoring outputs) uses the temp-file + ``os.replace`` idiom,
@@ -27,7 +26,8 @@ import os
 
 from photon_ml_tpu_torch.parallel import fault_injection
 
-__all__ = ["durable_replace", "fsync_file", "fsync_dir"]
+__all__ = ["durable_replace", "fsync_file", "fsync_dir",
+           "durable_dir_rename"]
 
 
 def fsync_file(path: str) -> None:
@@ -69,3 +69,14 @@ def durable_replace(tmp: str, dst: str) -> None:
     os.replace(tmp, dst)
     fsync_dir(os.path.dirname(os.path.abspath(dst)))
 
+
+def durable_dir_rename(src_dir: str, dst_dir: str) -> None:
+    """Durably commit a staged DIRECTORY (the registry's version-publish
+    rename): fsync the staging directory itself (its entries' names),
+    rename, fsync the destination's parent. Callers are responsible for
+    having fsynced the individual files inside (the registry's manifest
+    goes through :class:`~photon_ml_tpu_torch.parallel.resilience
+    .ResumeManager`, which commits via :func:`durable_replace`)."""
+    fsync_dir(src_dir)
+    os.rename(src_dir, dst_dir)
+    fsync_dir(os.path.dirname(os.path.abspath(dst_dir)))

@@ -19,6 +19,13 @@ answers scoring requests while it stays loaded:
   stdlib-only JSON endpoint (``/score``, ``/admin/reload``,
   ``/admin/membership``, ``/healthz``, ``/metrics``) on a threaded HTTP
   server;
+* :class:`~photon_ml_tpu_torch.serve.aserver.AsyncScoringServer` — the
+  same endpoints on an asyncio event loop, and
+  :class:`~photon_ml_tpu_torch.serve.aserver.AsyncFrontDoor` — the reverse
+  proxy over N replica processes (least-loaded or round-robin, circuit
+  breakers, hedging, entity-affinity routing, ``/fd/metrics``);
+* :class:`~photon_ml_tpu_torch.serve.watcher.RegistryWatcher` — follows a
+  model registry's ``LATEST`` and hot-swaps the session;
 * :class:`~photon_ml_tpu_torch.serve.paged_table.PagedCoefficientTable` —
   the hot entities' random-effect coefficients resident on the card in
   pages, scored by the hand-written kernel
@@ -33,9 +40,6 @@ answers scoring requests while it stays loaded:
   replica owns which entity;
 * :class:`~photon_ml_tpu_torch.serve.metrics.ServingMetrics` and
   :class:`~photon_ml_tpu_torch.serve.metrics.Histogram`.
-
-The asyncio server, the front door and its replicas, the model registry
-and its watcher are ROADMAP Queue 1 item 19.
 """
 
 from photon_ml_tpu_torch.serve.batcher import (
@@ -60,6 +64,8 @@ from photon_ml_tpu_torch.serve.metrics import Histogram, ServingMetrics
 from photon_ml_tpu_torch.serve.paged_table import PagedCoefficientTable
 from photon_ml_tpu_torch.serve.server import ScoringServer, ScoringService
 from photon_ml_tpu_torch.serve.session import ScoringSession
+from photon_ml_tpu_torch.serve.aserver import AsyncFrontDoor, AsyncScoringServer
+from photon_ml_tpu_torch.serve.watcher import RegistryWatcher
 
 __all__ = [
     "ScoringSession", "MicroBatcher", "QueueFullError", "ScoreContext",
@@ -67,5 +73,6 @@ __all__ = [
     "EntityCoefficientLRU", "LayeredCoefficientStore",
     "ModelDirCoefficientStore", "Histogram", "ServingMetrics",
     "PagedCoefficientTable", "ScoringService", "ScoringServer",
+    "AsyncScoringServer", "AsyncFrontDoor", "RegistryWatcher",
     "MembershipEpoch", "MembershipManager", "MembershipView",
 ]

@@ -336,6 +336,23 @@ class EntityCoefficientLRU:
                 self._metrics.record_coeff(evictions=evicted)
         return out
 
+    def seed(self, entries: Dict[str, Optional[CoeffEntry]]) -> None:
+        """Insert already-resolved entries (in the dict's order) without
+        a loader call or hit/miss accounting — a delta swap carries the
+        previous version's entries for entities its new layers do not
+        touch (evictions still count)."""
+        evicted = 0
+        with self._lock:
+            for key, entry in entries.items():
+                self._data[str(key)] = entry
+                self._data.move_to_end(str(key))
+            while len(self._data) > self.capacity:
+                self._data.popitem(last=False)
+                evicted += 1
+            self.evictions += evicted
+        if self._metrics is not None and evicted:
+            self._metrics.record_coeff(evictions=evicted)
+
     def resident_many(self, entity_ids) -> Dict[str, Optional[CoeffEntry]]:
         """Resolve ONLY the already-resident subset of ``entity_ids`` —
         the degraded-level-1 read: no loader call, no LRU reordering, no

@@ -39,7 +39,7 @@ Three pieces, one per side of the wire:
   "do I own this entity?".
 
 The transport (epoch broadcast, prefetch push, failover routing) is the
-async front door's (ROADMAP item 19); everything here is pure state +
+async front door's (``serve/aserver.py``); everything here is pure state +
 arithmetic so it is testable without sockets (plain mutexes, no lock
 nesting, no threads).
 """

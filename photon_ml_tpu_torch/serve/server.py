@@ -29,14 +29,15 @@ the session's degradation ladder. Every ``/score`` response carries
 ``"degraded"``: 0 full fidelity, 1 resident-coefficients-only, 2
 fixed-effect-only margin.
 
-``/admin/reload`` drives the zero-downtime hot swap: ``{"modelDir":
-path}`` swaps to a model directory (``"force": true`` swaps even to the
-directory already served). The model registry is ROADMAP Queue 1 item
-19, so every other body answers 400, as the JAX service does when no
-registry is configured. Replies 200 with the active version
-(``"swapped": false`` when already there) and 503 when the swap itself
-failed (the previous model keeps serving — a failed swap never tears
-down the live state).
+``/admin/reload`` drives the zero-downtime hot swap: an empty body
+follows the registry's ``LATEST``; ``{"version": "vNNNNNN"}`` pins a
+version (rollback = reload an older one); ``{"modelDir": path}`` swaps to
+a bare model directory (``"force": true`` swaps even to the directory
+already served). Replies 200 with the active version (``"swapped":
+false`` when already there), 400 when neither a model directory nor a
+registry is given, 404 for an unknown version, 409 when the registry has
+no live version, and 503 when the swap itself failed (the previous model
+keeps serving — a failed swap never tears down the live state).
 
 ``/metrics`` adds four series to the serving metrics:
 ``photon_serve_kernel_launches_total{kernel="paged_gather_score"}``, the
@@ -89,6 +90,7 @@ class ScoringService:
     def __init__(self, session: ScoringSession,
                  batcher: Optional[MicroBatcher] = None,
                  request_timeout_s: float = 30.0,
+                 registry=None,
                  default_deadline_ms: Optional[float] = None,
                  brownout=None):
         self.session = session
@@ -103,6 +105,7 @@ class ScoringService:
             else float(default_deadline_ms))
         self.brownout = brownout if brownout is not None else getattr(
             self.batcher, "brownout", None)
+        self.registry = registry  # optional registry.ModelRegistry
         self._reload_lock = threading.Lock()
 
     # -- endpoints ---------------------------------------------------------
@@ -245,11 +248,26 @@ class ScoringService:
         prev-state rollback slot; requests keep flowing either way."""
         payload = payload if isinstance(payload, dict) else {}
         model_dir = payload.get("modelDir")
+        version = payload.get("version")
         with self._reload_lock:
-            if not model_dir:
+            if model_dir:
+                source, version = model_dir, str(model_dir)
+            elif self.registry is not None:
+                try:
+                    version = version or self.registry.read_latest()
+                except Exception as e:
+                    return 503, {"error": f"registry unreadable: {e}"}
+                if version is None:
+                    return 409, {"error": "registry has no live version "
+                                          "(nothing promoted yet)"}
+                try:
+                    source = self.registry.open_version(version)
+                except Exception as e:
+                    return 404, {"error": f"unknown version "
+                                          f"{version!r}: {e}"}
+            else:
                 return 400, {"error": "no registry configured; pass "
                                       '{"modelDir": ...}'}
-            source, version = model_dir, str(model_dir)
             if (version == self.session.active_version
                     and not payload.get("force")):
                 return 200, {"activeVersion": self.session.active_version,

@@ -92,6 +92,7 @@ from photon_ml_tpu_torch.ops.kernels import (
     paged_gather_score_at,
 )
 from photon_ml_tpu_torch.serve.coeff_cache import (
+    CoeffEntry,
     EntityCoefficientLRU,
     LayeredCoefficientStore,
     ModelDirCoefficientStore,
@@ -148,11 +149,13 @@ class _ModelState:
 
     __slots__ = ("chain", "version", "task", "index_maps", "k_pad",
                  "model", "coeff_caches", "resident", "router",
-                 "shard_order", "intercepts", "paged", "plan", "fused_sig")
+                 "shard_order", "intercepts", "paged", "plan", "fused_sig",
+                 "stores")
 
     def __init__(self, chain, version, task, index_maps, k_pad, model,
                  coeff_caches, resident, router=None, shard_order=(),
-                 intercepts=(), paged=None, plan=(), fused_sig=None):
+                 intercepts=(), paged=None, plan=(), fused_sig=None,
+                 stores=None):
         self.chain = chain
         self.version = version
         self.task = task
@@ -168,6 +171,7 @@ class _ModelState:
         self.paged = paged or {}      # RE name -> PagedCoefficientTable
         self.plan = plan              # ordered (kind, name, shard_pos)
         self.fused_sig = fused_sig    # rung key component
+        self.stores = stores or {}    # RE name -> its layers' stores
 
 
 class _Rung:
@@ -308,16 +312,28 @@ class ScoringSession:
             self.warmup()
 
     # -- per-version state -------------------------------------------------
-    def _build_state(self, source, version: Optional[str] = None
-                     ) -> _ModelState:
+    def _build_state(self, source, version: Optional[str] = None,
+                     prev: Optional[_ModelState] = None) -> _ModelState:
         """Load one model version into an installable state: metadata,
         index maps, eager fixed-effect coordinates (uploaded to the card
         through ``transfer_budget``), and entity-coefficient caches
-        layered down a delta chain when the source carries one."""
+        layered down a delta chain when the source carries one.
+
+        When ``prev``'s chain is a proper suffix of the new chain (a
+        registry delta published on top of the served version), the
+        layers they share keep ``prev``'s store objects: registry
+        versions are immutable, so the entity ids a store has read stay
+        valid and the delta's swap does not read the shared layers
+        again."""
         from photon_ml_tpu_torch.io.paldb import load_index_map
 
         chain = (list(source.chain) if hasattr(source, "chain")
                  else [str(source)])
+        shared = set()
+        if (prev is not None and len(chain) > len(prev.chain)
+                and chain[len(chain) - len(prev.chain):] == list(prev.chain)):
+            shared = set(prev.chain)
+        layer_stores: Dict[str, list] = {}
         if version is None:
             version = getattr(source, "version", None) or chain[0]
         meta = load_model_metadata(chain[0])
@@ -358,12 +374,16 @@ class ScoringSession:
                     entity_column=c.get("entity_column", ""))
                 rel = os.path.join("random-effect", c["name"],
                                    "coefficients.avro")
+                kept = {st.model_dir: st for st in (
+                    prev.stores.get(c["name"], ()) if shared else ())}
                 stores = [
-                    ModelDirCoefficientStore(d, c["name"], imap,
-                                             c.get("projection"))
+                    kept[d] if d in kept
+                    else ModelDirCoefficientStore(d, c["name"], imap,
+                                                  c.get("projection"))
                     for d in chain
                     if os.path.exists(os.path.join(d, rel))
                 ]
+                layer_stores[c["name"]] = stores
                 store = (stores[0] if len(stores) == 1
                          else LayeredCoefficientStore(stores))
                 coeff_caches[c["name"]] = EntityCoefficientLRU(
@@ -430,7 +450,7 @@ class ScoringSession:
                            model, coeff_caches, resident, router=router,
                            shard_order=shard_order, intercepts=intercepts,
                            paged=paged, plan=tuple(plan),
-                           fused_sig=fused_sig)
+                           fused_sig=fused_sig, stores=layer_stores)
 
     # -- compatibility views over the active state ------------------------
     @property
@@ -464,7 +484,7 @@ class ScoringSession:
         previous state is retained until the next swap so
         :meth:`rollback` is instant."""
         t0 = time.perf_counter()
-        new = self._build_state(source, version)
+        new = self._build_state(source, version, prev=self._state)
         if warm_from_previous:
             for name, cache in new.coeff_caches.items():
                 old = self._state.coeff_caches.get(name)
@@ -481,18 +501,45 @@ class ScoringSession:
                     hot = [e for e, o in zip(hot, owned) if o]
                 if not hot:
                     continue
+                carried = self._carried_entries(name, new, old, hot)
+                if carried:
+                    hot = [e for e in hot if e not in carried]
                 table = new.paged.get(name)
                 if table is None:
                     cache.prefetch(hot)
+                    cache.seed(carried)
                 else:
-                    # the LRU warms synchronously (one store pass), page
+                    # the LRU warms synchronously (one store pass, or
+                    # none for a delta's untouched entities), page
                     # installs ride the background installer
-                    self._install_async(table, cache.warm_entries(hot))
+                    entries = cache.warm_entries(hot) if hot else {}
+                    cache.seed(carried)
+                    entries.update(carried)
+                    self._install_async(table, entries)
         with self._swap_lock:
             self._prev_state, self._state = self._state, new
         self.metrics.record_swap(new.version,
                                  (time.perf_counter() - t0) * 1e3)
         return new.version
+
+    def _carried_entries(self, name: str, new: _ModelState, old, hot
+                         ) -> Dict[str, Optional[CoeffEntry]]:
+        """The previous version's cached entries that a delta swap can
+        keep: when the new state's lower layers for coordinate ``name``
+        are the previous state's own store objects (``_build_state``
+        kept them), an entity that none of the new top layers knows
+        resolves to the same record as before. Empty otherwise."""
+        new_layers = new.stores.get(name, [])
+        old_layers = self._state.stores.get(name, [])
+        n_top = len(new_layers) - len(old_layers)
+        if (old is None or not old_layers or n_top < 0 or any(
+                a is not b for a, b in zip(new_layers[n_top:], old_layers))):
+            return {}
+        top_known = set()
+        for st in new_layers[:n_top]:
+            top_known |= st.known_ids()
+        return {e: entry for e, entry in old.resident_many(hot).items()
+                if e not in top_known}
 
     # -- entity-affinity membership ---------------------------------------
     @property

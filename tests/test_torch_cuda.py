@@ -998,3 +998,96 @@ def test_session_launch_count_equals_the_profiled_kernels(cuda,
         assert counted == 2 * 5 == seen
     finally:
         session.close()
+
+
+def test_async_server_on_the_card_scores_as_the_threaded_server(
+        cuda, served_model, tmp_path):
+    """Two sessions on the card serving a registry's v1, one behind the
+    threaded server and one behind the asyncio server: the same requests
+    score bit for bit alike; a delta of the same shape (two users'
+    coefficients halved) promoted and reloaded through ``/admin/reload``
+    captures nothing on either, and both then score bit for bit alike
+    again: the two users' parts exactly halved, every other part as it
+    was."""
+    import asyncio
+    import json
+    import os
+    import shutil
+    import threading
+    import urllib.request
+
+    from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+    from photon_ml_tpu_torch.registry import ModelRegistry, publish_delta
+    from photon_ml_tpu_torch.serve import (
+        AsyncScoringServer, MicroBatcher, ScoringServer, ScoringService,
+    )
+
+    model_dir, rows = served_model
+    delta_dir = str(tmp_path / "delta")
+    shutil.copytree(model_dir, delta_dir)
+    path = os.path.join(delta_dir, "random-effect", "per_user",
+                        "coefficients.avro")
+    records, schema = read_avro_file(path)
+    for rec in records:
+        if rec["modelId"] in ("u3", "u5"):
+            for coef in rec["means"]:
+                coef["value"] *= 0.5
+    write_avro_file(path, records, schema)
+    registry = ModelRegistry(str(tmp_path / "registry"))
+    v1 = registry.publish(model_dir, set_latest=True)
+
+    def service():
+        session = _serving_session(registry.open_version(v1), "float32")
+        batcher = MicroBatcher(session.score_rows, max_batch=16,
+                               max_delay_ms=1.0, metrics=session.metrics)
+        return ScoringService(session, batcher, registry=registry)
+
+    def post(port, path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+
+    threaded = ScoringServer(service(), port=0).start()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    run = lambda coro: asyncio.run_coroutine_threadsafe(coro, loop).result(60)
+    aserver = run(AsyncScoringServer(service()).start())
+    ports = {"thread": threaded.port, "async": aserver.port}
+    sessions = [threaded.service.session, aserver.service.session]
+    try:
+        captured = [s.compile_count for s in sessions]
+        body = lambda lo: {"rows": rows[lo:lo + 16], "perCoordinate": True}
+        before = {k: [post(p, "/score", body(lo))[1] for lo in (0, 16, 32)]
+                  for k, p in ports.items()}
+        assert before["async"] == before["thread"]
+        v2 = publish_delta(registry, delta_dir, set_latest=True)
+        for p in ports.values():
+            assert post(p, "/admin/reload", {}) == (
+                200, {"activeVersion": v2, "swapped": True})
+        for s in sessions:
+            assert s.drain_installs(30.0)
+        after = {k: [post(p, "/score", body(lo))[1] for lo in (0, 16, 32)]
+                 for k, p in ports.items()}
+        assert after["async"] == after["thread"]
+        assert [s.compile_count for s in sessions] == captured
+        def part(out, key):
+            return np.concatenate([b["scoreComponents"][key]
+                                   for b in out["async"]])
+
+        moved = np.array([r["entityIds"]["userId"] in ("u3", "u5")
+                          for r in rows])
+        was, now = part(before, "per_user"), part(after, "per_user")
+        # halving every coefficient halves each product and sum exactly
+        assert moved.any() and (was[moved] != 0).any()
+        assert np.array_equal(now[moved], 0.5 * was[moved])
+        assert np.array_equal(now[~moved], was[~moved])
+        assert np.array_equal(part(after, "per_item"),
+                              part(before, "per_item"))
+    finally:
+        threaded.close(drain_timeout_s=30.0)
+        run(aserver.aclose(drain_timeout_s=30.0))
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30.0)

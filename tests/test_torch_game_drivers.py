@@ -25,10 +25,9 @@ Tolerances: index maps equal; every saved model's coefficients within 1e-6
 relative L2 (the two packages sum in different orders); every logged
 validation metric within 1e-9; the scoring drivers' scores of the same
 saved model within 1e-9 and their metrics within 1e-9; each package's
-scores of its own model within 1e-6 of the other's. Each deferred flag
-raises and names its ROADMAP item; the sharding and recovery flags on one
-process leave the model as it was bit for bit, and the default
-``--device`` raises without CUDA."""
+scores of its own model within 1e-6 of the other's. The sharding and
+recovery flags on one process leave the model as it was bit for bit, and
+the default ``--device`` raises without CUDA."""
 
 import json
 import os
@@ -293,25 +292,6 @@ def test_each_package_scores_its_own_model_alike(fixture, runs):
     s_want = np.array([r["predictionScore"] for r in want])
     assert _rel(s_got, s_want) <= TOL_W
     assert abs(got_auc - want_auc) <= TOL_W
-
-
-_DEFERRED_CASES = [
-    (["--publish-to", "registry"], "19"),
-]
-
-
-# the ids keep their numbers from before the six streaming flags (item 16),
-# the three multi-process flags (item 15), the four recovery and sharding
-# flags (item 17) and the two observability flags (item 20a) were ported
-# and left this list
-@pytest.mark.parametrize("flags, item", _DEFERRED_CASES, ids=[
-    f"flags{i + 13}-{item}" for i, (_, item) in enumerate(_DEFERRED_CASES)])
-def test_deferred_flag_raises(tmp_path, flags, item):
-    argv = ["--train-data", "absent.avro", "--coordinates", "[]",
-            "--output-dir", str(tmp_path / "o"), "--device", "cpu", *flags]
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item} "):
-        game_training_driver.main(argv)
-    assert not (tmp_path / "o").exists()
 
 
 def _port_argv(fixture, out, *flags):

@@ -350,7 +350,7 @@ def test_driver_build_server_round_trip(reference):
     args = serving_driver.build_arg_parser().parse_args([
         "--model-dir", model_dir, "--device", "cpu", "--port", "0",
         "--dtype", "float64", "--max-batch", "8"])
-    assert args.server == "thread"
+    assert args.server == "async"  # build_server is the threaded one
     server = serving_driver.build_server(args).start()
     try:
         session = server.service.session
@@ -412,28 +412,6 @@ def test_driver_main_serves_then_drains_on_sigterm(reference, tmp_path):
         events = [json.loads(line)["event"] for line in f]
     assert events[0] == "driver_start" and events[-1] == "driver_done"
     assert "draining" in events
-
-
-DEFERRED = [
-    ["--registry", "reg"],
-    ["--model-version", "v000001"],
-    ["--replicas", "2"],
-    ["--front-door-policy", "round_robin"],
-    ["--hedge"],
-    ["--hedge-min-ms", "10"],
-    ["--affinity"],
-    ["--affinity-id-kind", "int"],
-    ["--server", "async"],
-]
-
-
-@pytest.mark.parametrize("flags", DEFERRED, ids=lambda f: f[0])
-def test_each_deferred_flag_raises_and_names_item_19(flags):
-    argv = flags + ["--device", "cpu"]
-    if flags[0] != "--registry":
-        argv += ["--model-dir", "no-such-model"]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 19"):
-        serving_driver.main(argv)
 
 
 def test_driver_serves_on_cuda_by_default():
